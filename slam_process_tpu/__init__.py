@@ -1,4 +1,4 @@
-"""slam_process_tpu — TPU-native mmWave beam-scan SLAM processing engine.
+"""slam_process_tpu — accelerator-native mmWave beam-scan SLAM processing engine.
 
 A brand-new JAX / XLA / Pallas framework with the capabilities of the
 ``lull21/slam-process`` reference pipeline (a set of CPU pandas/matplotlib

@@ -7,7 +7,7 @@ heatmap_gemini_v1.py:35-44 first-two-columns, heatmap_gemini_v3.py:23-43
 headerless-tolerant, heatmap_gpt_v2.py:21-30 heuristic, gpt_v1.py:9-14
 itertuples).  This is the single tolerant loader; the device-side artifact
 is a dense float32 LUT of length ``n_beams`` (NaN = unmapped) so the
-beam->angle remap is a pure gather on TPU.
+beam->angle remap is a pure gather on device.
 """
 
 from __future__ import annotations
@@ -17,7 +17,21 @@ from typing import Dict, Union
 
 import numpy as np
 
-from slam_process_tpu.io.xlsx import read_xlsx_table
+from slam_process_tpu.io.xlsx import read_xlsx_table, write_xlsx_table
+
+#: Built-in 64-beam table: -43.6 .. +45.0 deg at ~1.4 deg pitch.  The end
+#: points and pitch are the testbed's (SURVEY §2.8); the exact values in
+#: between are ASSUMED (linear, rounded to 0.1 deg), so generated captures
+#: and the reference's ``beam_angle.xlsx`` can differ by up to 0.1 deg.
+BEAM_ANGLES_DEG = np.round(np.linspace(-43.6, 45.0, 64), 1).astype(np.float32)
+
+
+def write_angle_map(path: Union[str, Path],
+                    angles: np.ndarray = BEAM_ANGLES_DEG) -> Path:
+    """Write a BeamID/Angle mapping ``.xlsx`` that ``load_angle_lut`` reads."""
+    table = np.stack([np.arange(len(angles)), np.asarray(angles, np.float64)],
+                     axis=1)
+    return write_xlsx_table(path, ["BeamID", "Angle"], table)
 
 
 def load_angle_map(path: Union[str, Path]) -> Dict[int, float]:

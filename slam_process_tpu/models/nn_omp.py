@@ -5,7 +5,7 @@ coeff>0) and v1-7.py:200-268 (terminal revision: stop on non-positive
 correlation or duplicate atom, keep coeff > max_coeff*min_power_ratio).
 
 Per iteration: correlation via the Kronecker identity
-``Phi_RX^T @ residual_matrix @ Phi_TX`` (two MXU matmuls over the
+``Phi_RX^T @ residual_matrix @ Phi_TX`` (two matmuls over the
 [~887 x 64 x 64 x ~887] chain), grid argmax, atom refit with NNLS over the
 selected outer-product atoms, residual update.  The jittable path keeps a
 static max_paths-slot atom table and a done flag; the numpy path is the
@@ -107,13 +107,11 @@ import functools as _functools
 def _jitted_nn_omp(cfg: OmpConfig, keep_rule: str, stop_nonpositive: bool):
     """Compiled NN-OMP shared across calls (configs are frozen/hashable).
 
-    Forces the LU NNLS subproblem solve: the Gauss-Jordan fori_loop that
-    wins in the vmapped dataset program LOSES 3.3x here (TPU v5e device
-    plane, biggest session, warm-started NNLS: LU 1.15 ms vs GJ 3.8 ms;
-    pre-warm-start it was 4.36 vs 14.74 ms) — unbatched, each of its K
-    sequential [K, K+1] row updates is a tiny op paying the
-    serialization floor that only a batch axis amortizes.  Both solvers
-    reach the identical optimum (tests/test_nn_omp.py).
+    Forces the LU NNLS subproblem solve: unbatched, each of the
+    Gauss-Jordan loop's K sequential [K, K+1] row updates is a tiny op
+    paying a per-op floor that only a batch axis amortizes.  (Not yet
+    measured on the H100 — ROADMAP A3.)  Both solvers reach
+    the identical optimum (tests/test_nn_omp.py).
     """
     import functools
 
@@ -170,8 +168,8 @@ def nn_omp_batch_jax(
 
     ``jax.vmap(nn_omp_jax)`` is the obvious formulation, but XLA lowers the
     vmapped correlation chain to S small per-lane GEMMs with a broadcast
-    operand — measured ~3 TFLOP/s on the chip, 20x below what the same
-    FLOPs reach as one large contraction.  Here each selection iteration
+    operand, far below what the same FLOPs reach as one large
+    contraction.  Here each selection iteration
     computes ALL scenes' correlations as two whole-batch contractions
     ([Ga,U]x[U,S*B] then [S*Ga,B]x[B,Gd]), and only the tiny K-sized refit
     work stays per-scene (vmapped NNLS — measured free next to the GEMMs).
@@ -316,7 +314,7 @@ def nn_omp_gram_batch_jax(
         # fuses it into the reduction and the iteration's only large
         # traffic is ONE read of corr_y.  The old flatten+argmax form
         # paid a re-tiling reshape COPY of the [S, Ga, Gd] surface plus
-        # two reduce reads (measured ~6 ms/iteration at [24, 886, 886]).
+        # two reduce reads.
         # Tie-breaking matches the flat argmax exactly: smallest g with
         # the global max, then smallest d within that row.  The winning
         # ROW is recomputed from corr_y + the rank-K update at g = i_r

@@ -3,13 +3,13 @@
 The reference materializes a [n_samples, Ga*Gd] dense dictionary of
 separable Gaussian atoms, column-normalizes it, and runs sklearn
 OrthogonalMatchingPursuit with n_nonzero_coefs=N_PATHS (v1-2.py:143-175).
-TPU-native formulation: never materialize the dictionary — atom columns are
+Device formulation: never materialize the dictionary — atom columns are
 separable, so
 
     column_norms^2[g, h] = sum_m rx^2[m, g] * tx^2[m, h]
     correlations[g, h]   = sum_m r[m] * rx[m, g] * tx[m, h]
 
-are each ONE [Ga x M x Gd] two-matmul chain (MXU), and the LS refit runs on
+are each ONE [Ga x M x Gd] two-matmul chain, and the LS refit runs on
 the <=K selected columns only.  Matches sklearn to float tolerance
 (tests/test_estimators.py) while using O(M*K) memory instead of O(M*Ga*Gd).
 

@@ -12,7 +12,6 @@ from pathlib import Path
 from typing import Optional, Union
 
 import numpy as np
-import pandas as pd
 
 from slam_process_tpu.config import (
     ClassifierConfig,
@@ -46,7 +45,9 @@ def build_scene(session, angle_file, log_transform: bool):
     return matrix, ue_ang, bs_ang
 
 
-def paths_dataframe(c: ClassifiedPaths) -> pd.DataFrame:
+def paths_dataframe(c: ClassifiedPaths) -> "pd.DataFrame":
+    import pandas as pd
+
     keep = np.asarray(c.valid)
     return pd.DataFrame(
         {
@@ -205,7 +206,7 @@ def run_estimator(
     angle_file: Union[str, Path],
     output_path: Optional[Union[str, Path]] = None,
     **overrides,
-) -> pd.DataFrame:
+) -> "pd.DataFrame":
     if name not in _REGISTRY:
         raise KeyError(f"unknown estimator {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](session, angle_file, output_path, **overrides)

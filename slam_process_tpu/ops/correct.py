@@ -193,8 +193,7 @@ def correct_rows_jax(
     # p1 = flag(1b) | ue(6b) | rss(18b), p2 = clk(30b).  Invalid rows carry
     # the sentinel p1 = -1, so "row holds a value" is p1 >= 0 and the scan
     # needs only TWO carries (each carry stream costs a full slice/pad
-    # ladder in XLA's log-depth lowering — measured ~14 us per [F] slice
-    # pass in tools/diag_correct_ops.py).
+    # ladder in XLA's log-depth lowering).
     p1 = jnp.where(valid, (flag << 24) | (ue << 18) | rss, -1)
     p2 = clk
 
@@ -232,22 +231,22 @@ def correct_rows_jax(
     )
 
     # Per-row one-hot over groups: every data-dependent table lookup below
-    # becomes an exact [F, G] @ [G, *] matmul on the MXU instead of a row
-    # gather (TPU gathers serialize at ~10 ns/element; the gather
-    # formulation dominated the whole-dataset program's device time —
-    # tools/diag_device_time.py).  Exactness: a one-hot row selects a
-    # single table entry, so each output is ONE product of exactly
-    # representable values — bf16-exact for the 8-bit-limb residue plane
-    # below (single MXU pass), f32/HIGHEST for the < 2^24 counts einsum.
+    # becomes an exact [F, G] @ [G, *] matmul instead of a row gather.
+    # (A gather is the obvious alternative; the two have not been
+    # measured against each other on the H100 — ROADMAP A7.)  Exactness:
+    # a one-hot row selects a single table entry, so each output is ONE
+    # product of exactly representable values — bf16 x bf16 products are
+    # exact in f32 and the f32 accumulation adds only zeros to it, so the
+    # 8-bit-limb residue plane below is exact in one bf16 pass on any
+    # backend (cuBLAS included); the < 2^24 counts einsum likewise.
     assert cfg.cycle <= (1 << 16), "2-limb residue plane needs cycle <= 2^16"
     assert max_baselines_per_group <= 256, "bf16-exact count needs bmax <= 256"
     onehot_g16 = (gid[:, None] == jnp.arange(max_groups)[None, :]
                   ).astype(jnp.bfloat16)
 
-    # Group baseline counts as a one-hot contraction (a segment_sum scatter
-    # measured ~150 ns/element on this chip; the [F, G] @ [F] product runs
-    # at MXU rate).  bf16 inputs are {0, 1} (exact); the f32 accumulation
-    # makes counts < 2^24 exact in a single MXU pass.
+    # Group baseline counts as a one-hot contraction instead of a
+    # segment_sum scatter.  bf16 inputs are {0, 1} (exact); the f32
+    # accumulation makes counts < 2^24 exact in a single bf16 pass.
     csum = jnp.cumsum(is_bl.astype(jnp.int32))
     group_counts = jnp.einsum(
         "fg,f->g", onehot_g16, is_bl.astype(jnp.bfloat16),
@@ -258,20 +257,19 @@ def correct_rows_jax(
     # destination cell (gid, rank) directly — rank from one keep-last
     # associative scan (csum at the group's boundary row counts the
     # baselines BEFORE the group, since a boundary row is never itself a
-    # baseline), so the [G, Bmax] table is a two-one-hot MXU contraction
+    # baseline), so the [G, Bmax] table is a two-one-hot contraction
     # tbl[g, r] = sum_f 1[gid=g] 1[rank=r] payload[f].  Each cell receives
     # exactly one nonzero product of exact 8-bit values -> bf16-exact with
-    # f32 accumulation.  (The previous formulation compacted via a 3-array
-    # [F] lax.sort + a dump-sized gather — the sort alone was the largest
-    # single op in the whole-dataset profile at ~0.8 ms.)
+    # f32 accumulation (instead of compacting via an [F] lax.sort and a
+    # gather).
     # Residue-form baseline payload (the key size trick — see
     # baseline_plane_verdicts for the algebra): a baseline's full 30-bit
     # anchor CLK is never needed downstream, only its residue
     # r_b = clk_b mod cycle (< cycle <= 2^16) and the 6-bit
     # e_b = (bs_b - clk_b // cycle) mod mod_base.  Both fit 8-bit limbs,
     # so the whole plane is bf16-exact and the selection matmul runs as a
-    # SINGLE bf16 MXU pass (f32 accumulate) instead of HIGHEST's 6-pass
-    # decomposition — at 3*bmax+1 columns instead of 3*bmax+2.
+    # SINGLE bf16 pass (f32 accumulate) instead of a full-f32 product — at
+    # 3*bmax+1 columns instead of 3*bmax+2.
     bmax = max_baselines_per_group
     q_b = jnp.floor_divide(prev_clk, cfg.cycle)
     bl_r = prev_clk - q_b * cfg.cycle
@@ -345,9 +343,7 @@ def baseline_plane_verdicts(sel, clk, *, bmax: int, cycle: int, tol: int):
     score tiebreak are computed from residues alone, bit-identical to the
     full-CLK formulation (asserted against the host oracle in tests).
 
-    SHARED by correct_rows_jax (the production XLA chain) and the fused
-    Pallas kernel (ops/pallas_correct.py) so the two formulations can
-    never drift: identical jnp ops trace in both contexts.  The score's
+    The score's
     column-index tiebreak makes the min unique (matching the host
     oracle's first-min selection), and the winner's payload rides along
     in the low 10 bits of ONE packed-i32 min-reduce — no second pick

@@ -152,11 +152,9 @@ def decode_frames_greedy_np(
 # JAX / device path
 # ---------------------------------------------------------------------------
 #
-# TPU executes data-dependent gathers ~10 ns/element (serialized scalar
-# fetches): the original formulation here — nonzero() over all byte
-# positions + an 11-wide window gather per frame — measured 750+ ms of the
-# whole-dataset program's 1.17 s device time (tools/diag_device_time.py).
-# The >=11-spacing theorem gives a gather-free formulation:
+# The obvious formulation is nonzero() over all byte positions + an 11-wide
+# window gather per frame.  The >=11-spacing theorem gives a gather-free
+# formulation instead:
 #
 #     a block of 11 consecutive byte positions contains AT MOST ONE valid
 #     frame start (two starts are >= 11 apart),
@@ -164,25 +162,23 @@ def decode_frames_greedy_np(
 # so reshaping the position axis to [R, 11] rows makes per-row reduction
 # (sum of per-position field values masked by ok) extract every frame with
 # pure vector ops.  Frame fields are computed AT EVERY POSITION first via
-# 10 static shifted slices (VPU, HBM-rate).  decode_rows_jax returns this
+# 10 static shifted slices (elementwise, memory-rate).  decode_rows_jax returns this
 # masked-row layout [R, 5] + valid[R]; decode_frames_jax densifies it with
 # one [capacity]-row compaction gather for callers that need the packed
 # table.
 #
 # The per-row reduction itself is NOT done with a [N] -> [R, 11] reshape:
-# 11 does not divide the 128-lane register tile, so that reshape is a full
-# cross-lane retiling copy — per-op profiling measured the five reshape-sums
-# at ~656 us isolated on the biggest log vs a 4.4 us HBM bound
-# (tools/diag_hot_ops.py, the round-3 stage roofline's worst entry).  Instead
-# the masked field values are packed into FOUR <=18-bit integer channels,
-# the position axis is padded to a multiple of 1408 = 11 * 128 (so the
-# [M, 1408] reshape keeps lane tiles intact — the same layout trick as the
+# 11 does not divide a 128-lane register tile, so that reshape can be a
+# cross-lane retiling copy.  Instead the masked field values are
+# packed into FOUR <=18-bit integer channels, the position axis is padded
+# to a multiple of 1408 = 11 * 128 (the same layout trick as the
 # tokenizer's [*, 384] deinterleave), and the per-row sums become ONE
-# constant [1408, 128] block-diagonal matmul on the MXU.  Exactness: every
-# channel value is an integer <= 2^18 (f32-exact), the weights are {0, 1},
-# and each 11-block holds at most one valid start (the spacing theorem), so
+# constant [1408, 128] block-diagonal matmul.  (Not yet measured against a
+# plain reshape-sum on the GPU — ROADMAP A7.)  Exactness: every channel
+# value is an integer <= 2^18 (f32-exact), the weights are {0, 1}, and
+# each 11-block holds at most one valid start (the spacing theorem), so
 # each output element is a sum of ONE exact product — HIGHEST precision
-# keeps the MXU from rounding through bf16 (the ops/correct.py argument).
+# keeps the product from rounding through bf16 or TF32.
 
 
 def decode_rows_jax(
@@ -235,7 +231,7 @@ def decode_rows_jax(
 
     # Row reduction: <= 1 valid start per 11-position row, so a masked sum
     # per row IS the frame (zeros when the row has no start).  Done as one
-    # block-diagonal MXU matmul in a lane-aligned [M, 1408] layout — see the
+    # block-diagonal matmul in a lane-aligned [M, 1408] layout — see the
     # module comment above for the layout/exactness argument.
     r = -(-n // 11)
     oki = ok.astype(jnp.int32)

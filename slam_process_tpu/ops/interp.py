@@ -7,7 +7,7 @@ Device replacements for the reference's scipy interpolation calls:
     A_ij = |x_i - x_j| with A -= s*I, nodes = solve(A, values), evaluation
     phi(dist(query, centers)) @ nodes.  At the reference's N = 4096 centers
     and 100x100 query grid this is one [N, N] solve + one [Q, N] matmul —
-    both MXU work.  ``kernel='thin_plate'`` (phi = r^2 log r, phi(0)=0)
+    both matmul work.  ``kernel='thin_plate'`` (phi = r^2 log r, phi(0)=0)
     covers heatmap_gemini_v1-3.py:441's ``function='thin_plate'``.
   * ``RectBivariateSpline`` upsampling (heatmap_gemini_v2.py:81-85):
     separable not-a-knot cubic-spline interpolation on the rectilinear
@@ -109,7 +109,7 @@ def cubic_spline_interp_matrix(x: np.ndarray, xq: np.ndarray) -> np.ndarray:
     """Dense [Q, N] matrix mapping samples y -> spline values at xq (host).
 
     Precomputed once per axis on host; evaluation on device is then a single
-    matmul, so 2-D separable interpolation is ``Wy @ values @ Wx^T`` (MXU).
+    matmul, so 2-D separable interpolation is ``Wy @ values @ Wx^T``.
     """
     x = np.asarray(x, dtype=np.float64)
     xq = np.asarray(xq, dtype=np.float64)

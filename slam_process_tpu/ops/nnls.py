@@ -7,8 +7,8 @@ here it is reformulated with a bounded ``lax.while_loop`` over an active-set
 bitmask so it jits (SURVEY.md hard part #3).  The problem sizes in this
 engine are tiny (K <= 20 atoms over M = 4096 samples), so the solver works
 on the Gram system G = A^T A, b = A^T y with [K, K] dense solves — the
-M-dimensional work is two matmuls outside the loop (MXU), and the loop body
-is O(K^2) scalar-ish work (VPU).
+M-dimensional work is two matmuls outside the loop, and the loop body
+is O(K^2) scalar-ish elementwise work.
 
 The masked subproblem solve uses the identity-padding trick: rows/cols
 outside the passive set P are replaced by identity so the solution is
@@ -31,8 +31,7 @@ def nnls_gram(G, b, max_outer: int = 64, max_inner: int = 16,
 
     ``solver`` picks the masked subproblem solve: "auto" = closed-form
     adjugate at K=3, Gauss-Jordan fori_loop for K>3; "lu" forces
-    ``jnp.linalg.solve`` (kept for A/B adjudication —
-    tools/diag_session_est.py).
+    ``jnp.linalg.solve`` (kept for A/B comparison).
 
     ``x0``/``P0`` warm-start the active set: pass the previous solution
     when G/b grew by one atom (the OMP refit pattern — old rows/cols of
@@ -76,9 +75,8 @@ def nnls_gram(G, b, max_outer: int = 64, max_inner: int = 16,
             # lowers to hundreds of tiny serialized ops (row-pivot argmax +
             # swaps per column + two triangular solves) and this solve sits
             # inside BOTH nested NNLS while-loops of the K=20 session
-            # estimator (adjudicated on the device plane by
-            # tools/diag_session_est.py).  GJ is K steps of pure
-            # elementwise work on one VPU tile.  A zero pivot (degenerate
+            # estimator.  GJ is K steps of pure elementwise work on one
+            # small tile.  A zero pivot (degenerate
             # passive Gram from near-collinear atoms) zeroes that row's
             # contribution instead of laundering inf/NaN — same guard
             # policy as the k==3 adjugate branch below.
@@ -99,8 +97,8 @@ def nnls_gram(G, b, max_outer: int = 64, max_inner: int = 16,
         if k == 3:
             # Closed-form adjugate solve: jnp.linalg.solve's batched LU is
             # dozens of tiny ops per while-loop iteration, and this solve
-            # sits inside BOTH nested NNLS loops of the per-sweep hot path
-            # (measured ~17 ms of the 36 ms dataset pass).  A 3x3 Gram
+            # sits inside BOTH nested NNLS loops of the per-sweep hot
+            # path.  A 3x3 Gram
             # (identity-completed, SPD on the passive set) is far from the
             # conditioning regime where LU pivoting beats Cramer in f32;
             # coefficient parity vs the float64 oracle is asserted by the

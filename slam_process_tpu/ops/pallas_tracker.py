@@ -1,35 +1,30 @@
-"""Pallas kernel for the streaming tracker's per-step sweep block.
+"""Pallas (Triton) kernel for the streaming tracker's per-step sweep block.
 
 The online-tracking slice of the device streaming step advances the
-greedy global-NN tracker (models/tracking.make_track_sweep_step) over
-the sweeps a window just closed.  As an XLA ``while_loop`` that is ~30
-serialized sub-tile ops per sweep (argmin over a [T, K] cost, five
-one-element scatters, four ring writes), measured at ~15 ms over a
-dataset replay (tools/diag_streaming_paths.py) — pure dispatch floor,
-zero bandwidth or FLOP content: T=8 tracks x K=3 paths is 24 floats.
+greedy global-NN tracker (models/tracking.make_track_sweep_step) over the
+sweeps a window just closed.  As an XLA ``while_loop`` that is ~30 tiny
+serialized ops per sweep (argmin over a [T, K] cost, one-element scatters,
+ring writes): on a GPU every iteration costs kernel launches and a
+predicate read, for T=8 tracks x K=3 paths of arithmetic.
 
-This kernel runs the WHOLE per-step tracker scan in one launch: a
-sequential grid over the s1 sweep lanes (one [1, K] path row in, one
-[1, T] output row per field out), with the tracker carry persistent in
-VMEM/SMEM scratch across grid steps — the same
-sequential-grid-plus-running-scratch structure as
-ops/pallas_compact.py.  Lanes >= the closed-sweep count run with an
-all-invalid path mask, which is a provable carry no-op (gating can
-never pass, nothing is leftover to create) — the padding argument of
-models/tracking.make_track_sweep_step.
+This kernel runs the whole block in one launch: one program per stream
+(``jax.vmap`` over streams adds the grid axis), a loop inside the program
+over the closed sweeps, and the tracker carry (track positions, created
+flags, track count) held in registers across iterations.  It writes the
+[s1, T] output columns for the closed sweeps; rows at or past ``m_eff``
+are left unwritten (the streaming ring overwrites them with later blocks
+and never reads past its final closed-sweep count).
 
-Exactness argument (same contract as models/tracking.track_paths_jax):
-within one sweep the cost matrix is STATIC — a matched track is masked
-out by ``assigned`` in the same iteration that moves its position, so
-its updated position never re-enters the cost — and the argmin
-tie-break (first flat index in row-major order) is reproduced by
-``min(where(cost == min(cost), flat_index, TK))``.  All cost arithmetic
-is f32, identical ops in identical order; new-track creation ranks are
-exact small-integer f32 sums.
+Exactness (same contract as models/tracking.track_paths_jax): within one
+sweep the cost matrix is static — a matched track is masked out by
+``assigned`` in the same iteration that moves its position, so its new
+position never re-enters the cost — and the argmin tie-break (first flat
+index, row-major) is ``min(where(cost == min(cost), flat_index, T*K))``.
+Positions and powers are copied, never computed, so the columns equal the
+loop's whenever the same (track, path) decisions are made.
 
-Reference semantics: beyond-reference capability (the reference never
-uses its CLK axis — heatmap_gemini_v2.py:35-38 aggregates it "for
-future ToA use" and stops); the behavioral spec is models/tracking.
+Triton wants power-of-two block shapes; the wrapper pads T, K and s1 up
+(padded tracks are never created, padded paths are invalid).
 """
 
 from __future__ import annotations
@@ -39,182 +34,135 @@ import functools
 __all__ = ["track_block_pallas"]
 
 
-def _kernel(meff_ref, count_in_ref, pos_in_ref, created_in_ref,
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _kernel(meff_ref, count_ref, pos_a_ref, pos_d_ref, created_ref,
             aoa_ref, aod_ref, pow_ref, val_ref,
             oa_ref, od_ref, op_ref, oo_ref,
-            npos_ref, ncreated_ref, ncount_ref,
-            pos_a_ref, pos_d_ref, created_ref, count_ref,
-            *, gate2: float, k_n: int, s1: int):
+            npos_a_ref, npos_d_ref, ncreated_ref, ncount_ref,
+            *, gate2: float, k_n: int, t_n: int):
     import jax
     import jax.numpy as jnp
-    from jax.experimental import pallas as pl
 
-    t_n = pos_in_ref.shape[0]
+    tp = pos_a_ref.shape[0]
+    kp = aoa_ref.shape[1]
+    t_idx = jnp.arange(tp, dtype=jnp.int32)
+    k_idx = jnp.arange(kp, dtype=jnp.int32)
+    flat = t_idx[:, None] * kp + k_idx[None, :]                  # [T, K]
+    before = k_idx[:, None] < k_idx[None, :]                     # [K, K]
     big = jnp.float32(jnp.inf)
-    gate2 = jnp.float32(gate2)
-    i = pl.program_id(0)
+    no_idx = jnp.int32(tp * kp)
 
-    @pl.when(i == 0)
-    def _init():
-        pos_a_ref[:] = pos_in_ref[:, 0:1]
-        pos_d_ref[:] = pos_in_ref[:, 1:2]
-        created_ref[:] = created_in_ref[:]
-        count_ref[0] = count_in_ref[0]
+    def sweep(i, carry):
+        pos_a, pos_d, created, count = carry
+        p_aoa = aoa_ref[i, :]                                    # [K]
+        p_aod = aod_ref[i, :]
+        p_pow = pow_ref[i, :]
+        p_val = (val_ref[i, :] > 0) & (k_idx < k_n)
+        da = pos_a[:, None] - p_aoa[None, :]                     # [T, K]
+        dd = pos_d[:, None] - p_aod[None, :]
+        cost = da * da + dd * dd
 
-    t_iota = jax.lax.broadcasted_iota(jnp.int32, (t_n, 1), 0)    # [T, 1]
-    k_iota = jax.lax.broadcasted_iota(jnp.int32, (1, k_n), 1)    # [1, K]
-    flat = jax.lax.broadcasted_iota(jnp.int32, (t_n, k_n), 0) * k_n \
-        + jax.lax.broadcasted_iota(jnp.int32, (t_n, k_n), 1)     # [T, K]
+        assigned = jnp.zeros((tp,), jnp.int32)
+        used = jnp.zeros((kp,), jnp.int32)
+        obs = jnp.zeros((tp,), jnp.int32)
+        opow = jnp.zeros((tp,), jnp.float32)
+        for _ in range(k_n):
+            m = (((created > 0) & (assigned == 0))[:, None]
+                 & (p_val & (used == 0))[None, :])
+            c = jnp.where(m, cost, big)
+            mn = jnp.min(c)
+            idx = jnp.min(jnp.where(c == mn, flat, no_idx))
+            ok = mn <= gate2
+            t_oh = (t_idx == idx // kp) & ok                     # [T]
+            k_oh = (k_idx == idx % kp) & ok                      # [K]
+            assigned = jnp.where(t_oh, 1, assigned)
+            used = jnp.where(k_oh, 1, used)
+            obs = jnp.where(t_oh, 1, obs)
+            sel_a = jnp.sum(jnp.where(k_oh, p_aoa, 0.0))
+            sel_d = jnp.sum(jnp.where(k_oh, p_aod, 0.0))
+            sel_p = jnp.sum(jnp.where(k_oh, p_pow, 0.0))
+            pos_a = jnp.where(t_oh, sel_a, pos_a)
+            pos_d = jnp.where(t_oh, sel_d, pos_d)
+            opow = jnp.where(t_oh, sel_p, opow)
 
-    pos_a = pos_a_ref[:]                                         # [T, 1]
-    pos_d = pos_d_ref[:]
-    created = created_ref[:] > 0                                 # [T, 1]
-    count = count_ref[0]
+        # New tracks for leftover valid paths, in path order: slot =
+        # count + (leftover paths before this one).
+        left = jnp.where(p_val & (used == 0), 1, 0)              # [K]
+        rank = jnp.sum(jnp.where(before, left[:, None], 0), axis=0)
+        slot = count + rank
+        create = (left > 0) & (slot < t_n)
+        oh = create[None, :] & (slot[None, :] == t_idx[:, None])  # [T, K]
+        hit = jnp.sum(jnp.where(oh, 1, 0), axis=1) > 0            # [T]
+        new_a = jnp.sum(jnp.where(oh, p_aoa[None, :], 0.0), axis=1)
+        new_d = jnp.sum(jnp.where(oh, p_aod[None, :], 0.0), axis=1)
+        new_p = jnp.sum(jnp.where(oh, p_pow[None, :], 0.0), axis=1)
+        pos_a = jnp.where(hit, new_a, pos_a)
+        pos_d = jnp.where(hit, new_d, pos_d)
+        opow = jnp.where(hit, new_p, opow)
+        created = jnp.where(hit, 1, created)
+        obs = jnp.where(hit, 1, obs)
+        count = count + jnp.sum(jnp.where(create, 1, 0))
 
-    p_aoa = aoa_ref[pl.ds(i, 1), :]                              # [1, K]
-    p_aod = aod_ref[pl.ds(i, 1), :]
-    p_pow = pow_ref[pl.ds(i, 1), :]
-    live = i < jnp.minimum(meff_ref[0], s1)
-    p_val = (val_ref[pl.ds(i, 1), :] > 0) & live                 # [1, K]
+        oa_ref[i, :] = pos_a
+        od_ref[i, :] = pos_d
+        op_ref[i, :] = opow
+        oo_ref[i, :] = obs
+        return pos_a, pos_d, created, count
 
-    # Static within the sweep: matched tracks are masked out in the same
-    # iteration their position moves (see module docstring).
-    da = pos_a - p_aoa                                           # [T, K]
-    dd = pos_d - p_aod
-    cost = da * da + dd * dd
-
-    assigned = jnp.zeros((t_n, 1), bool)
-    used = jnp.zeros((1, k_n), bool)
-    obs = jnp.zeros((t_n, 1), bool)
-    opow = jnp.zeros((t_n, 1), jnp.float32)
-
-    for _ in range(k_n):
-        m = (created & ~assigned) & (p_val & ~used)              # [T, K]
-        c = jnp.where(m, cost, big)
-        mn = jnp.min(c)
-        idx = jnp.min(jnp.where(c == mn, flat, t_n * k_n))
-        ok = mn <= gate2
-        t_oh = (t_iota == idx // k_n) & ok                       # [T, 1]
-        k_oh = (k_iota == idx % k_n) & ok                        # [1, K]
-        assigned = assigned | t_oh
-        used = used | k_oh
-        obs = obs | t_oh
-        sel_a = jnp.sum(jnp.where(k_oh, p_aoa, 0.0))
-        sel_d = jnp.sum(jnp.where(k_oh, p_aod, 0.0))
-        sel_p = jnp.sum(jnp.where(k_oh, p_pow, 0.0))
-        pos_a = jnp.where(t_oh, sel_a, pos_a)
-        pos_d = jnp.where(t_oh, sel_d, pos_d)
-        opow = jnp.where(t_oh, sel_p, opow)
-
-    # New tracks for leftover valid paths, in path (= rank) order: the
-    # exclusive prefix count of leftover lanes is exact small-integer
-    # f32 (row-reduce of a strictly-lower-triangular masked broadcast).
-    leftover = p_val & ~used                                     # [1, K]
-    lo_f = jnp.where(leftover, jnp.float32(1), jnp.float32(0))
-    before = jax.lax.broadcasted_iota(jnp.int32, (k_n, k_n), 0) \
-        < jax.lax.broadcasted_iota(jnp.int32, (k_n, k_n), 1)
-    rank = jnp.sum(jnp.where(before, lo_f.reshape(k_n, 1), 0.0),
-                   axis=0, keepdims=True).astype(jnp.int32)      # [1, K]
-    slot = count + rank                                          # [1, K]
-    create = leftover & (slot < t_n)
-    oh = create & (slot == t_iota)                               # [T, K]
-    any_t = jnp.sum(jnp.where(oh, 1, 0), axis=1, keepdims=True) > 0
-    new_a = jnp.sum(jnp.where(oh, p_aoa, 0.0), axis=1, keepdims=True)
-    new_d = jnp.sum(jnp.where(oh, p_aod, 0.0), axis=1, keepdims=True)
-    new_p = jnp.sum(jnp.where(oh, p_pow, 0.0), axis=1, keepdims=True)
-    pos_a = jnp.where(any_t, new_a, pos_a)
-    pos_d = jnp.where(any_t, new_d, pos_d)
-    opow = jnp.where(any_t, new_p, opow)
-    created = created | any_t
-    obs = obs | any_t
-    count = count + jnp.sum(jnp.where(create, 1, 0))
-
-    pos_a_ref[:] = pos_a
-    pos_d_ref[:] = pos_d
-    created_ref[:] = jnp.where(created, 1, 0)
-    count_ref[0] = count
-
-    # Output row i: positions AFTER the update (coasting hold).  The
-    # [T, 1] -> [1, T] turn is a sum against a [T, T] one-hot (no
-    # sub-tile transpose op).
-    eye = (jax.lax.broadcasted_iota(jnp.int32, (t_n, t_n), 0)
-           == jax.lax.broadcasted_iota(jnp.int32, (t_n, t_n), 1))
-    as_row = lambda col: jnp.sum(jnp.where(eye, col, 0.0), axis=0,
-                                 keepdims=True)
-    oa_ref[pl.ds(i, 1), :] = as_row(pos_a)
-    od_ref[pl.ds(i, 1), :] = as_row(pos_d)
-    op_ref[pl.ds(i, 1), :] = as_row(opow)
-    oo_ref[pl.ds(i, 1), :] = jnp.sum(
-        jnp.where(eye & obs, 1, 0), axis=0, keepdims=True)
-
-    @pl.when(i == s1 - 1)
-    def _final():
-        npos_ref[:] = jnp.concatenate([pos_a, pos_d], axis=1)
-        ncreated_ref[:] = jnp.where(created, 1, 0)
-        ncount_ref[0] = count
+    carry = (pos_a_ref[...], pos_d_ref[...], created_ref[...], count_ref[0])
+    pos_a, pos_d, created, count = jax.lax.fori_loop(
+        0, meff_ref[0], sweep, carry)
+    npos_a_ref[...] = pos_a
+    npos_d_ref[...] = pos_d
+    ncreated_ref[...] = created
+    ncount_ref[0] = count
 
 
-@functools.lru_cache(maxsize=16)
-def _build(s1: int, k_n: int, t_n: int, gate_deg: float, interpret: bool):
-    import jax
-
-    from slam_process_tpu.utils.cache import enable_persistent_cache
-
-    enable_persistent_cache()
-    return jax.jit(functools.partial(
-        _call, s1=s1, k_n=k_n, t_n=t_n, gate_deg=gate_deg,
-        interpret=interpret))
-
-
-def _call(aoa, aod, pw, val, meff, pos, created, count, *, s1, k_n, t_n,
-          gate_deg, interpret):
+def _call(aoa, aod, pw, val, meff, pos, created, count, *, gate_deg,
+          interpret):
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as pltriton
 
-    f32 = jnp.float32
-    i32 = jnp.int32
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    whole = lambda r, c: pl.BlockSpec((r, c), lambda i: (0, 0))
-    row_in = whole(s1, k_n)
-    row_out = whole(s1, t_n)
-    gate2 = float(gate_deg) * float(gate_deg)
+    f32, i32 = jnp.float32, jnp.int32
+    s1, k_n = aoa.shape
+    t_n = pos.shape[0]
+    sp, kp, tp = _pow2(s1), _pow2(k_n), _pow2(t_n)
+
+    def rows(x, dtype):
+        return jnp.pad(jnp.asarray(x, dtype), ((0, sp - s1), (0, kp - k_n)))
+
+    def tracks(x, dtype):
+        return jnp.pad(jnp.asarray(x, dtype), (0, tp - t_n))
+
+    col = jax.ShapeDtypeStruct((sp, tp), f32)
     outs = pl.pallas_call(
-        functools.partial(_kernel, gate2=gate2, k_n=k_n, s1=s1),
-        grid=(s1,),
-        in_specs=[smem, smem, whole(t_n, 2), whole(t_n, 1),
-                  row_in, row_in, row_in, row_in],
-        out_specs=(row_out, row_out, row_out, row_out,
-                   whole(t_n, 2), whole(t_n, 1), smem),
-        out_shape=(
-            jax.ShapeDtypeStruct((s1, t_n), f32),
-            jax.ShapeDtypeStruct((s1, t_n), f32),
-            jax.ShapeDtypeStruct((s1, t_n), f32),
-            jax.ShapeDtypeStruct((s1, t_n), i32),
-            jax.ShapeDtypeStruct((t_n, 2), f32),
-            jax.ShapeDtypeStruct((t_n, 1), i32),
-            jax.ShapeDtypeStruct((1,), i32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((t_n, 1), f32),
-            pltpu.VMEM((t_n, 1), f32),
-            pltpu.VMEM((t_n, 1), i32),
-            pltpu.SMEM((1,), i32),
-        ],
+        functools.partial(_kernel, gate2=float(gate_deg) ** 2, k_n=k_n,
+                          t_n=t_n),
+        out_shape=(col, col, col, jax.ShapeDtypeStruct((sp, tp), i32),
+                   jax.ShapeDtypeStruct((tp,), f32),
+                   jax.ShapeDtypeStruct((tp,), f32),
+                   jax.ShapeDtypeStruct((tp,), i32),
+                   jax.ShapeDtypeStruct((1,), i32)),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=1, num_stages=1),
         interpret=interpret,
+        name="track_block",
     )(
-        jnp.asarray(meff, i32).reshape(1),
+        jnp.minimum(jnp.asarray(meff, i32), s1).reshape(1),
         jnp.asarray(count, i32).reshape(1),
-        jnp.asarray(pos, f32),
-        jnp.asarray(created, i32).reshape(t_n, 1),
-        jnp.asarray(aoa, f32),
-        jnp.asarray(aod, f32),
-        jnp.asarray(pw, f32),
-        jnp.asarray(val, i32).reshape(s1, k_n),
+        tracks(pos[:, 0], f32), tracks(pos[:, 1], f32),
+        tracks(created, i32),
+        rows(aoa, f32), rows(aod, f32), rows(pw, f32), rows(val, i32),
     )
-    oa, od, op, oo, npos, ncreated, ncount = outs
-    return (oa, od, op, oo > 0, npos, ncreated[:, 0] > 0, ncount[0])
+    oa, od, op, oo, npa, npd, ncr, ncount = outs
+    new_pos = jnp.stack([npa[:t_n], npd[:t_n]], axis=1)
+    return (oa[:s1, :t_n], od[:s1, :t_n], op[:s1, :t_n], oo[:s1, :t_n] > 0,
+            new_pos, ncr[:t_n] > 0, ncount[0])
 
 
 def track_block_pallas(aoa_l, aod_l, pow_l, val_l, m_eff, pos, created,
@@ -225,14 +173,11 @@ def track_block_pallas(aoa_l, aod_l, pow_l, val_l, m_eff, pos, created,
     (lanes >= ``m_eff`` are ignored), the closed-sweep count ``m_eff``
     (traced i32), and the tracker carry (``pos`` [T, 2] f32, ``created``
     [T] bool, ``count`` i32).  Returns ``(col_aoa, col_aod, col_pow,
-    col_obs, new_pos, new_created, new_count)`` where the ``col_*``
-    arrays are [s1, T] per-sweep output columns — bit-identical per
-    lane to ``track_sweep_step_np`` for lanes < m_eff (later lanes
-    hold the coasting positions with zero power/observed — junk the
-    streaming ring overwrites / never reads past m_eff).
+    col_obs, new_pos, new_created, new_count)`` where the ``col_*`` arrays
+    are [s1, T] per-sweep output columns, equal per lane to
+    ``track_sweep_step_np`` for lanes < m_eff and unspecified after.
+    Traceable inside ``jit`` and ``vmap`` (one program per mapped lane).
+    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU).
     """
-    s1, k_n = aoa_l.shape
-    t_n = pos.shape[0]
-    return _build(int(s1), int(k_n), int(t_n), float(gate_deg),
-                  bool(interpret))(
-        aoa_l, aod_l, pow_l, val_l, m_eff, pos, created, count)
+    return _call(aoa_l, aod_l, pow_l, val_l, m_eff, pos, created, count,
+                 gate_deg=float(gate_deg), interpret=bool(interpret))

@@ -12,15 +12,14 @@ Replaces the render stage of ``excel_heatmap*.py``:
     (idx = clip(int(x * N), 0, N-1)); NaN cells -> fully transparent
     (cmap.set_bad((1,1,1,0)), excel_heatmap.py:431-433).
 
-The full fused pipeline (blur+norm+cmap) also exists as a single Pallas
-kernel in ops/pallas_raster.py; this module is the XLA reference the kernel
-is tested against, and is itself fully jittable/vmappable.
+The whole pipeline is jittable and vmappable.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,7 +27,16 @@ import numpy as np
 
 @functools.lru_cache(maxsize=None)
 def colormap_lut(name: str = "viridis", n: int = 256) -> np.ndarray:
-    """[n, 4] float32 RGBA lookup table for a matplotlib colormap name."""
+    """[n, 4] float32 RGBA lookup table for a matplotlib colormap name.
+
+    The device path's table (viridis, 256 entries) is committed in
+    ``assets/viridis256.txt`` (``matplotlib.colormaps["viridis"]`` sampled
+    at ``linspace(0, 1, 256)``), so rasterizing needs no matplotlib; other
+    maps come from matplotlib itself.
+    """
+    if name == "viridis" and n == 256:
+        path = Path(__file__).resolve().parents[1] / "assets" / "viridis256.txt"
+        return np.loadtxt(path, dtype=np.float64).astype(np.float32)
     import matplotlib
 
     cmap = matplotlib.colormaps[name]
@@ -86,9 +94,8 @@ def _blur_operator_np(n: int, sigma: float) -> np.ndarray:
 
     The reference's 2-D kernel (gaussian_kernel_np) is separable — the
     outer product of its (normalized) marginals — so the NaN-aware blur's
-    two 2-D convs become ``K @ X @ K.T`` matmul chains.  On TPU this moves
-    the blur from conv ops (measured ~5 ms fixed cost at the 64x64 shape)
-    to two sub-microsecond MXU matmuls."""
+    two 2-D convs become ``K @ X @ K.T`` matmul chains (two tiny matmuls
+    instead of conv ops at the 64x64 shape)."""
     k2 = gaussian_kernel_np(sigma)
     g = k2.sum(axis=0)                       # 1-D factor, sums to 1
     p = len(g) // 2
@@ -116,11 +123,11 @@ def blur_nan_aware_jax(data, sigma: float):
     filled = jnp.nan_to_num(data, nan=0.0)
 
     def blur(x):
-        # precision=HIGHEST: the TPU default runs these matmuls in bf16 on
-        # the MXU, and raw RSS spans 18 bits — the ~1e-3 relative error
+        # precision=HIGHEST: a default-precision matmul may run in bf16 or
+        # TF32, and raw RSS spans 18 bits — the ~1e-3 relative error
         # explodes through the shifted-log norm for cells near the global
-        # min (diagnosed on-device in round 2: a cell 880 units above mn
-        # moved by a full 0.076 in t; f32 matches the f64 oracle).
+        # min (a cell 880 units above mn moved by a full 0.076 in t under
+        # bf16; f32 matches the f64 oracle).
         return jnp.matmul(
             op, jnp.matmul(x, op_t, precision=lax.Precision.HIGHEST),
             precision=lax.Precision.HIGHEST)

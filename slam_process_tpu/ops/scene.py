@@ -10,18 +10,18 @@ Replaces the reference's pandas pivot paths:
     keyed by mapped angles, NaN kept for empty cells;
   * excel_heatmap_v2 keeps only FLAG==1 rows first (v2.py:165-166).
 
-Device formulation: a (UE, BS) cell mean is a segment mean over frames.  On
-TPU this is two matmuls — build one-hot row/col encodings and contract
+Device formulation: a (UE, BS) cell mean is a segment mean over frames,
+written as two one-hot contractions
 
     sums[u, b]   = sum_f onehotUE[f, u] * rss[f] * onehotBS[f, b]
     counts[u, b] = sum_f onehotUE[f, u] * onehotBS[f, b]
 
-i.e. ``(onehotUE * rss).T @ onehotBS`` and ``onehotUE.T @ onehotBS`` — pure
-MXU work at [F, 64] x [F, 64], which is the speed-of-light layout for this
-reduction on the systolic array (vs a scatter-add that serializes on cell
-conflicts).  The full 64x64 grid is kept with occupancy masks so shapes stay
-static; observed-submatrix extraction for the estimators happens on host (or
-via masks downstream).
+i.e. ``(onehotUE * rss).T @ onehotBS`` and ``onehotUE.T @ onehotBS`` at
+[F, 64] x [F, 64] instead of a scatter-add.  (The two have not been
+measured against each other on the H100 — ROADMAP A7.)  The
+full 64x64 grid is kept with occupancy masks so shapes stay static;
+observed-submatrix extraction for the estimators happens on host (or via
+masks downstream).
 
 Note the beam->angle map is strictly increasing (beam_angle.xlsx), so the
 reference's angle-keyed pivot orders rows/cols identically to id-keyed
@@ -37,13 +37,6 @@ import numpy as np
 from slam_process_tpu.config import SceneConfig
 
 _DEFAULT = SceneConfig()
-
-# Widest flattened (sweep x UE) one-hot the Pallas sweep-sums kernel can
-# hold in VMEM: [1024, W] bf16 + [W, 256] f32 ≈ 3 KB x W, proven on chip
-# at W = 4224 (max_sweeps = 66, ~13 MB).  Past this, "auto" falls back to
-# the lax.scan engine whose peak memory is independent of S.
-PALLAS_SWEEP_SUMS_MAX_WIDTH = 4224
-
 
 class IntensityGrid(NamedTuple):
     """Dense [n_beams, n_beams] intensity statistics, UE-major.
@@ -119,7 +112,7 @@ def intensity_sums_jax(
     flag=None,                # jnp [F] int32, for flag_filter configs
     cfg: SceneConfig = _DEFAULT,
 ):
-    """Jittable (sums, counts) accumulators via one-hot MXU contractions.
+    """Jittable (sums, counts) accumulators via one-hot contractions.
 
     The streaming path folds these per-chunk partials into running device
     accumulators; the batch path finalizes them into a mean grid directly.
@@ -140,9 +133,9 @@ def intensity_sums_jax(
     onehot_bs = (bs[:, None] == jnp.arange(cfg.n_beams)[None, :]).astype(jnp.float32)
     onehot_ue = onehot_ue * kf[:, None]
 
-    # precision=HIGHEST: raw RSS spans 18 bits; the MXU's default bf16 passes
-    # would lose ~10 bits of mantissa in the weighted sum.  Counts are exact
-    # in any precision (0/1 products, f32 accumulation).
+    # precision=HIGHEST: raw RSS spans 18 bits; a reduced-precision pass
+    # (bf16 or TF32) would drop mantissa bits in the weighted sum.  Counts
+    # are exact in any precision (0/1 products, f32 accumulation).
     sums = jnp.einsum(
         "fu,f,fb->ub",
         onehot_ue,
@@ -165,7 +158,7 @@ def intensity_grid_jax(
     flag=None,                # jnp [F] int32, for flag_filter configs
     cfg: SceneConfig = _DEFAULT,
 ):
-    """Jittable intensity assembly via one-hot MXU contractions.
+    """Jittable intensity assembly via one-hot contractions.
 
     Returns an IntensityGrid of jnp arrays (mean has NaN in empty cells).
     """
@@ -188,59 +181,19 @@ def intensity_per_sweep_sums_jax(
     valid,                    # jnp [F] bool
     max_sweeps: int,
     cfg: SceneConfig = _DEFAULT,
-    engine: str = "auto",
 ):
     """Per-sweep (sums, counts) accumulators [S, U, B] (both f32).
 
     The raw-accumulator form of :func:`intensity_per_sweep_jax`; the
     streaming path needs sums so a sweep spanning chunk boundaries can
-    fold its partials before the mean is taken.
-
-    ``engine``: "scan" = the XLA lax.scan formulation; "pallas" = the
-    fused VMEM one-hot kernel (ops/pallas_sweep_sums.py — requires
-    integer-dtype RSS, i.e. ``log_transform=False``); "auto" picks the
-    kernel on the TPU backend when RSS is an integer dtype AND the
-    flattened one-hot width fits the kernel's VMEM budget
-    (``PALLAS_SWEEP_SUMS_MAX_WIDTH`` — beyond it the in-VMEM
-    [block, S*64] one-hot exceeds ~16 MB and Mosaic refuses to
-    compile, so auto falls back to the scan).  Both engines produce
-    bit-identical exact integer (sums, counts).
+    fold its partials before the mean is taken.  Integer RSS sums are
+    exact while they stay below 2^24 (HIGHEST precision, f32 accumulate).
     """
     import jax
     import jax.numpy as jnp
 
     keep = valid & (ue >= 0) & (ue < cfg.n_beams) & (bs >= 0) & (bs < cfg.n_beams)
     val = rss.astype(jnp.float32)
-    width = ((max_sweeps * cfg.n_beams + 127) // 128) * 128
-    if engine == "auto":
-        engine = ("pallas" if not cfg.log_transform
-                  and jnp.issubdtype(rss.dtype, jnp.integer)
-                  and width <= PALLAS_SWEEP_SUMS_MAX_WIDTH
-                  and jax.default_backend() == "tpu" else "scan")
-    if engine == "pallas":
-        assert not cfg.log_transform, "pallas sweep sums needs integer RSS"
-        assert jnp.issubdtype(rss.dtype, jnp.integer), (
-            f"pallas sweep sums needs an integer-dtype RSS operand (got "
-            f"{rss.dtype}): float values would be silently truncated")
-        assert width <= PALLAS_SWEEP_SUMS_MAX_WIDTH, (
-            f"flattened one-hot width {width} (max_sweeps={max_sweeps}) "
-            f"exceeds the kernel's VMEM budget "
-            f"({PALLAS_SWEEP_SUMS_MAX_WIDTH}); use engine='scan'")
-        from slam_process_tpu.ops.pallas_sweep_sums import (
-            BLOCK_F,
-            sweep_sums_pallas,
-        )
-
-        in_range = (gid >= 0) & (gid < max_sweeps)
-        p = jnp.where(keep & in_range,
-                      gid * cfg.n_beams + ue, jnp.int32(-1))
-        f = ue.shape[0]
-        f_pad = ((f + BLOCK_F - 1) // BLOCK_F) * BLOCK_F
-        p = jnp.pad(p, (0, f_pad - f), constant_values=-1)
-        bs_p = jnp.pad(bs.astype(jnp.int32), (0, f_pad - f))
-        val_p = jnp.pad(rss.astype(jnp.int32), (0, f_pad - f))
-        return sweep_sums_pallas(p, bs_p, val_p, max_sweeps=max_sweeps,
-                                 n_beams=cfg.n_beams)
     if cfg.log_transform:
         keep = keep & (val > 0)
         val = jnp.log(jnp.maximum(val, 1e-30))
@@ -284,7 +237,7 @@ def intensity_per_sweep_jax(
     The SURVEY design keeps the session as ``intensity[S, 64, 64]`` so
     renders/estimators can ``vmap`` across sweeps; this assembles it with a
     single einsum over (frame -> sweep) x (frame -> ue) x (frame -> bs)
-    one-hots — still MXU work, [F, S]x[F, U]x[F, B].
+    one-hots, [F, S]x[F, U]x[F, B].
     Returns (mean [S, U, B] with NaN empties, counts [S, U, B] i32).
     """
     import jax.numpy as jnp

@@ -1,12 +1,11 @@
 """Device-side hex tokenization for stride-regular serial logs.
 
 The reference tokenizes with a per-token Python regex loop
-(serial_hex_to_excel_v3.py:18-36); round 3's engine moved that to a numpy
-mask pass and a native C scanner (io/hexlog.py, runtime/hexscan.c), but the
-single host core (~536 MB/s) still capped end-to-end throughput at ~1/3 of
-the device decode rate.
+(serial_hex_to_excel_v3.py:18-36); this engine also has a numpy mask pass
+and a native C scanner (io/hexlog.py, runtime/hexscan.c), but both run on
+one host core.
 
-This module moves tokenization onto the TPU.  Every shipped log is a short
+This module moves tokenization onto the device.  Every shipped log is a short
 junk prefix (the 2-byte UTF-8 guillemet + separator) followed by a perfectly
 regular ``"XX "`` stride-3 token stream, so on device the tokenize is a
 ``[T, 3]`` reshape plus uint8 arithmetic — no gathers, no compaction, and it
@@ -115,13 +114,15 @@ def tokenize_stride3_jax(text, n_text):
 
     LAYOUT (the whole performance story): a naive ``[M//3, 3]`` reshape
     with per-column slices puts the token on a 3-wide minor axis — 3 of 128
-    lanes used, and every column slice is a stride-3 cross-lane shuffle
-    (measured 17 ms for the 35 MB dataset, ~6 GB/s).  Instead the text
+    lanes used, and every column slice is a stride-3 cross-lane shuffle.
+    Instead the text
     reshapes to ``[M//384, 384]`` (128 tokens per row, minor axis = 3 full
     lane tiles), every per-byte classification runs elementwise in that
     layout, and the stride-3 deinterleave becomes ONE constant [384, 128]
-    matmul on the MXU (exact: bf16 inputs <= 42, weights {16, 1, 0} —
-    bf16 x bf16 products accumulate exactly in f32, sums <= 714 < 2^24).
+    matmul (exact: bf16 inputs <= 42, weights {16, 1, 0} — bf16 x bf16
+    products accumulate exactly in f32, sums <= 714 < 2^24, on any
+    backend).  The 128-lane layout is not yet measured against a strided
+    slice on the H100 (ROADMAP A7).
     Shapes not divisible by 384 (tiny tests) take the reshape path below —
     same semantics, covered by the same parity tests.
     """

@@ -5,8 +5,7 @@ Usage: python -m slam_process_tpu.parallel._dryrun_worker <pid> <nproc>
 
 Joins a 2-virtual-device-per-process gloo cluster and advances 2 local
 synthetic streams through ONE global ``MultihostMultiStream`` window round
-(the process-spanning collective live-ingest path — the newest DCN code
-surface).  Prints one JSON line on success; exits non-zero otherwise.
+(the process-spanning collective live-ingest path).  Prints one JSON line on success; exits non-zero otherwise.
 
 Spawned by ``__graft_entry__.dryrun_multichip`` so the multi-host ingest
 program is compile+execute-validated by the round driver without real
@@ -21,26 +20,7 @@ import sys
 
 import numpy as np
 
-
-def synthetic_stream_bytes(n_frames: int, seed: int) -> bytes:
-    """A tiny valid 11-byte-format stream (FLAG/UE/BS/CLK*5/RSS*3 tags)."""
-    rng = np.random.default_rng(seed)
-    out = []
-    clk = 500_000
-    for k in range(n_frames):
-        ue = k % 64
-        clk += 61_000 + int(rng.integers(-100, 100))
-        rss = int(rng.integers(1, 1 << 18))
-        flag = 1 if ue % 16 == 1 else 0
-        bs = (7 + clk // 61_000) % 64 if flag else 0x3F
-        out.append(0xCC if flag else 0x33)
-        out.append(ue & 0x3F)
-        out.append(0xC0 | (bs & 0x3F))
-        for i in range(5):
-            out.append(0x40 | ((clk >> (6 * i)) & 0x3F))
-        for i in range(3):
-            out.append(0x80 | ((rss >> (6 * i)) & 0x3F))
-    return bytes(out)
+from slam_process_tpu.io.synth import capture
 
 
 def main() -> None:
@@ -63,7 +43,7 @@ def main() -> None:
                               group_capacity=1024, max_groups=8,
                               max_baselines_per_group=16)
 
-    streams = [synthetic_stream_bytes(180, seed=10 * pid + i)
+    streams = [capture(10 * pid + i, 180, 1).wire.tobytes()
                for i in range(n_local)]
     # Two feed rounds then a collective finalize: exercises the lockstep
     # window agreement, the sharded step program, and the flush path.

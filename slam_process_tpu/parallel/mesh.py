@@ -1,14 +1,18 @@
 """Device-mesh construction for the batched/sharded pipelines.
 
 The reference has no distributed layer at all (SURVEY.md section 2: no
-NCCL/MPI/threads); the TPU-native scaling axis is sharding batches of
-sessions/frames across chips over ICI with ``jax.sharding`` + jit.  The
+NCCL/MPI/threads); the scaling axis here is sharding batches of
+sessions/frames across devices with ``jax.sharding`` + jit.  The
 canonical mesh is 2-D:
 
   * ``data``  — sessions (or frame chunks) are embarrassingly parallel;
   * ``model`` — the estimator dictionary grid (and the 64-beam intensity
-    axis) shards across chips for the big correlation matmuls, with XLA
-    inserting psum/all-gather over ICI.
+    axis) shards across devices for the big correlation matmuls, with
+    XLA inserting psum/all-gather (NCCL on GPUs).
+
+The cards of one host are joined all to all (NVLink on the H100), so the
+mesh follows the algorithm alone: devices are taken in ``jax.devices()``
+order and no physical topology is encoded.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
     1. serial_hex_to_excel_v3 — one log -> Parsed table + intensity matrix
     2. excel_heatmap_v3      — one filtered scan -> static heatmap PNG
     3. bs_beam_correction    — correction + corrected estimation render
-    4. batched_session       — all debugDoc logs through the device pipeline
+    4. batched_session       — every capture through the device pipeline
     5. streaming_replay      — chunked real-time decode->correct->render
 
 Each entry returns a JSON-serializable result dict.  Driven by
@@ -76,8 +76,7 @@ def config_batched(data_dir: Path, mapping: Path, outdir: Path) -> dict:
     outs = [run_session_on_device(r) for r in raw]
     jax.block_until_ready([o.rgba for o in outs])
     dt = time.perf_counter() - t0
-    # One aggregated counter read (per-buffer read bursts degrade the relay
-    # transport — docs/STATUS.md transport rules).
+    # One aggregated counter read instead of one read per session.
     total = int(jax.jit(lambda *xs: sum(xs))(*[o.n_frames for o in outs]))
     return {"config": "batched_session", "n_logs": len(logs),
             "total_frames": total, "elapsed_s": round(dt, 4),
@@ -95,7 +94,7 @@ def config_streaming(data_dir: Path, mapping: Path, outdir: Path) -> dict:
     raws = [read_hex_log(p) for p in logs]
 
     # Device-resident state machine (the production streaming path): time
-    # everything, then read (docs/STATUS.md transport rules).
+    # everything, then read.
     replay_log_device(raws[0], chunk_bytes=1 << 20).block_until_ready()
     t0 = time.perf_counter()
     sessions = [replay_log_device(r, chunk_bytes=1 << 20) for r in raws]
@@ -108,7 +107,7 @@ def config_streaming(data_dir: Path, mapping: Path, outdir: Path) -> dict:
         *[s._state.n_frames for s in sessions]))
     sessions[-1].render(lut)
 
-    # Host fallback machine with periodic live renders (no TPU required).
+    # Host fallback machine with periodic live renders (no accelerator required).
     t0 = time.perf_counter()
     host_total = 0
     for r in raws:
@@ -136,8 +135,14 @@ def run_named_config(name: str, data_dir: Optional[Path] = None,
                      outdir: Optional[Path] = None) -> dict:
     if name not in NAMED_CONFIGS:
         raise KeyError(f"unknown config {name!r}; have {sorted(NAMED_CONFIGS)}")
-    data_dir = Path(data_dir or "/root/reference/debugDoc")
-    mapping = Path(mapping or "/root/reference/beam_angle.xlsx")
+    if data_dir is None or mapping is None:
+        # Default input: the generated archive (io/synth.py).
+        from slam_process_tpu.io.synth import default_archive
+
+        gen_dir, gen_map = default_archive()
+        data_dir = data_dir or gen_dir
+        mapping = mapping or gen_map
+    data_dir, mapping = Path(data_dir), Path(mapping)
     outdir = Path(outdir or "artifacts/configs")
     outdir.mkdir(parents=True, exist_ok=True)
     return NAMED_CONFIGS[name](data_dir, mapping, outdir)

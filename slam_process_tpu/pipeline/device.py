@@ -39,7 +39,7 @@ class DeviceSessionOut(NamedTuple):
     # block [11r, 11r+11) if any (frame_valid[r]); frames appear in stream
     # order with gaps.  This is decode_rows_jax's gather-free output — the
     # dense [:n_frames] packing would cost a [cap]-row compaction gather
-    # per session (TPU gathers serialize at ~10 ns/element); hosts compact
+    # per session; hosts compact
     # with frames[frame_valid] when they need the packed table.
 
 
@@ -152,8 +152,7 @@ def bucket_size(n: int, quantum: int = 1 << 18) -> int:
 # ---------------------------------------------------------------------------
 # Text-ingest path: raw LOG TEXT is the only host->device traffic; the
 # stride-3 tokenizer (ops/tokenize.py) fuses into the same jit program as
-# decode+correct+render.  Closes round 3's end-to-end gap (the host
-# tokenizer at ~536 MB/s on one core was ~2/3 of true end-to-end time).
+# decode+correct+render, so no host core tokenizes.
 # ---------------------------------------------------------------------------
 
 

@@ -13,9 +13,8 @@ setup with whatever CJK-capable font is available:
   3. CJK families already known to matplotlib (SimHei, Noto Sans CJK SC,
      WenQuanYi, Microsoft YaHei, Source Han Sans SC).
 
-When none is found (this build environment is zero-egress and ships no
-CJK font — see docs/STATUS.md), figures fall back gracefully: DejaVu
-renders the Latin chrome, CJK labels show as boxes, and the golden tests
+When none is found (no CJK font is installed), figures fall back
+gracefully: DejaVu renders the Latin chrome, CJK labels show as boxes, and the golden tests
 use shift-tolerant structural checks for those figures.  Note that exact
 pixel parity with the reference's text would require SimHei itself; any
 substitute (including Noto) changes glyph rasters.

@@ -15,16 +15,17 @@ non-zero on any mismatch; prints one JSON line on success.
 
 import json
 import sys
+from pathlib import Path
 
 import numpy as np
 
-MAPPING = "/root/reference/beam_angle.xlsx"
 
 
 def main() -> None:
     pid, nproc = int(sys.argv[1]), int(sys.argv[2])
     coordinator = sys.argv[3]
     log = sys.argv[4]
+    mapping = str(Path(log).parent / "beam_angle.xlsx")
 
     from slam_process_tpu.parallel.multihost import (
         MultihostMultiStream,
@@ -51,7 +52,7 @@ def main() -> None:
     streams = [tokens[i * sl:(i + 1) * sl] for i in range(n_local)]
     chunk = 1 << 16
     ecap = sl // 11 + 64
-    cp = make_paths_spec(MAPPING)
+    cp = make_paths_spec(mapping)
 
     mesh = global_data_mesh(model=1)   # (8,) data over both processes
     kw = dict(chunk_bytes=chunk, collect_paths=cp, emit_capacity=ecap)

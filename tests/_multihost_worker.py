@@ -10,6 +10,7 @@ the parent can compare against the single-process oracle.
 """
 
 import json
+from pathlib import Path
 import sys
 
 
@@ -51,7 +52,7 @@ def main() -> None:
     for s in sessions:
         s.correct()
     paths = estimate_sessions_multihost(
-        sessions, "/root/reference/beam_angle.xlsx", mesh,
+        sessions, str(Path(logs[0]).parent / "beam_angle.xlsx"), mesh,
         flavor="v1-7", grid_res=0.5)
     aoa = local_shard(paths.aoa)
     valid = local_shard(paths.valid)

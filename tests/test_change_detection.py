@@ -132,9 +132,10 @@ def test_session_scene_changes_smoke(tmp_path):
     consistent with the track tensor."""
     from slam_process_tpu.pipeline.session import Session
 
-    log = ("/root/reference/debugDoc/"
-           "Serial Debug 2026-02-06 091211.txt")
-    mapping = "/root/reference/beam_angle.xlsx"
+    from tests.conftest import BEAM_ANGLE, SMALL_LOG_2026_02_06
+
+    log = SMALL_LOG_2026_02_06
+    mapping = BEAM_ANGLE
     s = Session.from_log(log)
     events, tracks, times = s.scene_changes(mapping, min_persist=2,
                                             min_gone=2)

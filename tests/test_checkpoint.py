@@ -253,7 +253,7 @@ def test_checkpoint_extra_roundtrip_and_finalized_guard(small_log_bytes,
 
 
 def test_host_streaming_checkpoint_resume(small_log_bytes, tmp_path):
-    """The host-engine session (no TPU) checkpoints and resumes with the
+    """The host-engine session (no accelerator) checkpoints and resumes with the
     same exact-parity contract as the device engine."""
     from slam_process_tpu.parallel.streaming import StreamingSession
 

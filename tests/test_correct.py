@@ -13,7 +13,7 @@ from slam_process_tpu.ops.correct import (
     identify_baselines_np,
 )
 from slam_process_tpu.ops.decode import decode_frames_np
-from tests.conftest import DEBUGDOC
+from tests.conftest import DEBUGDOC, LOG_NAMES
 
 CYCLE, TOL, MOD = 61_000, 500, 64
 
@@ -207,7 +207,7 @@ def test_jax_golden_parity_020606(parsed_golden_020606, filtered_golden_020606):
 
 @pytest.mark.slow
 @pytest.mark.parametrize(
-    "log", sorted(p.name for p in DEBUGDOC.glob("*.txt")), ids=lambda s: s[-20:-4]
+    "log", LOG_NAMES, ids=lambda s: s[-20:-4]
 )
 def test_all_logs_filtered_parity(log):
     from slam_process_tpu.io.schemas import read_filtered_table

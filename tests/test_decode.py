@@ -11,7 +11,7 @@ from slam_process_tpu.ops.decode import (
     frame_capacity,
     frame_start_mask,
 )
-from tests.conftest import DEBUGDOC
+from tests.conftest import DEBUGDOC, LOG_NAMES
 
 
 def make_frame(flag=0x33, ue=5, bs=0x3F, clk=12345, rss=54321):
@@ -184,7 +184,7 @@ def test_jax_decode_greedy_equivalence_synthetic():
 
 @pytest.mark.slow
 @pytest.mark.parametrize(
-    "log", sorted(p.name for p in DEBUGDOC.glob("*.txt")), ids=lambda s: s[-20:-4]
+    "log", LOG_NAMES, ids=lambda s: s[-20:-4]
 )
 def test_all_logs_decode_and_spacing(log):
     b = read_hex_log(DEBUGDOC / log, engine="numpy")

@@ -1,7 +1,7 @@
 """engine="device" parity for the extended estimator families.
 
-Every estimator family now has a jitted device path (VERDICT r1 weak #6):
-nn_omp/sm_sic were covered in round 1 (tests/test_estimators.py); this file
+Every estimator family has a jitted device path: nn_omp/sm_sic are
+covered in tests/test_estimators.py; this file
 covers svd, fusion, peak_picking, and lasso_refine against their float64
 host oracles on a real session.
 """
@@ -71,8 +71,10 @@ def test_device_engine_matches_host(name, sort_cols, value_cols, session):
     host = _run(name, session)
     dev = _run(name, session, engine="device")
     assert len(host) == len(dev), (host, dev)
-    h = host.sort_values(sort_cols).reset_index(drop=True)
-    d = dev.sort_values(sort_cols).reset_index(drop=True)
+    # Sort on the angles rounded to the 0.1-degree grid: two paths can
+    # share an AoA up to float jitter, which must not reorder the rows.
+    h, d = (df.loc[df[sort_cols].round(1).sort_values(sort_cols).index]
+            .reset_index(drop=True) for df in (host, dev))
     for col in sort_cols:
         np.testing.assert_allclose(
             np.asarray(d[col], float), np.asarray(h[col], float), atol=0.11,

@@ -10,8 +10,12 @@ from slam_process_tpu.config import SceneConfig
 
 
 def _load_reference(name, path):
-    from tests.conftest import load_reference_module
+    """The reference repository's script ``path``; skips without it."""
+    from tests.conftest import REFERENCE, load_reference_module
 
+    if REFERENCE is None or not (REFERENCE / path).is_file():
+        pytest.skip(f"needs the reference repository's {path} "
+                    "(set SLAM_PROCESS_REFERENCE to its checkout)")
     return load_reference_module(name, path)
 
 
@@ -27,7 +31,7 @@ def test_sm_sic_matches_reference(scene_plain_091211):
     from slam_process_tpu.models.sm_sic import sm_sic_np
 
     matrix, ue_ang, bs_ang, _, _ = scene_plain_091211
-    ref = _load_reference("ref_v3", "/root/reference/heatmap_gemini_v3.py")
+    ref = _load_reference("ref_v3", "heatmap_gemini_v3.py")
     est = ref.SpatialMaskingEstimator(beam_width_deg=10.0)
     est.construct_dictionary(ue_ang.astype(np.float64),
                              bs_ang.astype(np.float64), grid_res=0.5)
@@ -98,7 +102,7 @@ def test_svd_matches_reference(filtered_golden_020606, angle_lut64):
     raw, ue_ang, bs_ang, min_rss = build_raw_matrix(ue, bs, rss, angle_lut64)
     heat, gue, gbs = svd_upsample(raw, ue_ang, bs_ang, min_rss)
 
-    ref = _load_reference("ref_v2", "/root/reference/heatmap_gemini_v2.py")
+    ref = _load_reference("ref_v2", "heatmap_gemini_v2.py")
     # Reference heatmap via its own RectBivariateSpline path.
     from scipy.interpolate import RectBivariateSpline
 
@@ -203,7 +207,7 @@ def test_cross_region_classifier_matches_reference():
         classify_cross_region,
     )
 
-    ref = _load_reference("ref_v15", "/root/reference/heatmap_gemini_v1-5.py")
+    ref = _load_reference("ref_v15", "heatmap_gemini_v1-5.py")
     rng = np.random.default_rng(23)
     for trial in range(5):
         k = 12
@@ -239,7 +243,7 @@ def test_fusion_nlos_matches_reference(filtered_golden_020606, angle_lut64):
     filled = fill_grid(grid, SceneConfig())
     matrix, ue_ang, bs_ang, _, _ = compact_grid(grid, filled, angle_lut64)
 
-    ref = _load_reference("ref_v4", "/root/reference/heatmap_gemini_v4.py")
+    ref = _load_reference("ref_v4", "heatmap_gemini_v4.py")
     est = ref.NLoSEstimator(beam_width_deg=1.4)
     est.construct_dictionary(ue_ang.astype(np.float64),
                              bs_ang.astype(np.float64), grid_res=0.5)
@@ -280,7 +284,7 @@ def test_preprocess_matches_reference(scene_plain_091211):
     function of its ``data`` argument, callable unbound)."""
     from slam_process_tpu.models.preprocess import preprocess_power
 
-    ref = _load_reference("ref_v13", "/root/reference/heatmap_gemini_v1-3.py")
+    ref = _load_reference("ref_v13", "heatmap_gemini_v1-3.py")
     oracle = ref.BeamDataProcessor._preprocess_power_data
 
     matrix = np.asarray(scene_plain_091211[0], dtype=np.float64)

@@ -1,6 +1,6 @@
 """CJK font discovery/registration (render/fonts.py).
 
-This environment ships no CJK font (zero egress; docs/STATUS.md item 3),
+The test machines ship no CJK font,
 so the bundling mechanism is proven with a synthesized TTF that covers the
 reference-title codepoints: dropping a font into assets/fonts/ (or naming
 one via SLAM_PROCESS_TPU_CJK_FONT) must register it with matplotlib, make

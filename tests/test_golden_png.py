@@ -1,6 +1,6 @@
 """Golden-PNG parity: our v1 estimation render vs the shipped pic/ files.
 
-The 10 PNGs in /root/reference/pic/ were produced by heatmap_gemini_v1.py
+The 10 PNGs in the reference repository's pic/ were produced by heatmap_gemini_v1.py
 (filtered xlsx -> pivot -> NN-OMP(max 3) -> RBF contourf -> LoS marker,
 dpi 300).  Our render must reproduce them at the full-figure pixel level:
 identical canvas size, and only antialiasing-edge pixels (contour/marker
@@ -12,17 +12,25 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tests.conftest import BEAM_ANGLE, DEBUGDOC
+# Every test here compares with the reference's own artifacts (golden PNGs,
+# its debugDoc filtered tables and its beam_angle.xlsx), so each one takes
+# the ``require_reference`` fixture and skips without the reference checkout.
+pytestmark = pytest.mark.usefixtures("require_reference")
 
-PIC = Path("/root/reference/pic")
+
+def _ref(*parts) -> Path:
+    from tests.conftest import REFERENCE
+
+    return REFERENCE.joinpath(*parts)
 
 
 def _render(session_stem: str, out_path):
     from slam_process_tpu.models import run_estimator
     from slam_process_tpu.pipeline.session import Session
 
-    s = Session.from_filtered_xlsx(DEBUGDOC / f"{session_stem}_filtered.xlsx")
-    run_estimator("nn_omp_v1", s, BEAM_ANGLE, out_path)
+    s = Session.from_filtered_xlsx(
+        _ref("debugDoc", f"{session_stem}_filtered.xlsx"))
+    run_estimator("nn_omp_v1", s, _ref("beam_angle.xlsx"), out_path)
 
 
 @pytest.mark.parametrize("stem", ["2026-01-27 115200"])
@@ -35,7 +43,7 @@ def test_golden_pic_parity(tmp_path, stem):
     out = tmp_path / "ours.png"
     _render(f"Serial Debug {stem}", out)
     ours = plt.imread(out)
-    gold = plt.imread(PIC / f"{stem}.png")
+    gold = plt.imread(_ref("pic", f"{stem}.png"))
     assert ours.shape == gold.shape, "figure canvas must match exactly"
     d = np.abs(ours.astype(np.float64) - gold.astype(np.float64))
     assert d.mean() < 1e-4
@@ -56,28 +64,29 @@ REPRODUCIBLE = {"2026-01-27 115200", "2026-02-04 115200"}
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize(
-    "stem",
-    [p.stem for p in sorted(PIC.glob("*.png"))],
-)
-def test_golden_pic_parity_all(tmp_path, stem):
+def test_golden_pic_parity_all(tmp_path):
     import matplotlib
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    src = DEBUGDOC / f"Serial Debug {stem}_filtered.xlsx"
-    if not src.exists():
-        pytest.skip("no filtered artifact for this golden render")
-    out = tmp_path / "ours.png"
-    _render(f"Serial Debug {stem}", out)
-    ours = plt.imread(out)
-    gold = plt.imread(PIC / f"{stem}.png")
-    assert ours.shape == gold.shape, "figure canvas must match exactly"
-    if stem in REPRODUCIBLE:
-        d = np.abs(ours.astype(np.float64) - gold.astype(np.float64))
-        assert d.mean() < 2e-4
-        assert (d > 1e-3).mean() < 0.01
+    checked = 0
+    for png in sorted(_ref("pic").glob("*.png")):
+        stem = png.stem
+        src = _ref("debugDoc", f"Serial Debug {stem}_filtered.xlsx")
+        if not src.exists():       # no filtered artifact for this render
+            continue
+        out = tmp_path / f"{stem}.png"
+        _render(f"Serial Debug {stem}", out)
+        ours = plt.imread(out)
+        gold = plt.imread(png)
+        assert ours.shape == gold.shape, (stem, "canvas must match exactly")
+        if stem in REPRODUCIBLE:
+            d = np.abs(ours.astype(np.float64) - gold.astype(np.float64))
+            assert d.mean() < 2e-4, stem
+            assert (d > 1e-3).mean() < 0.01, stem
+        checked += 1
+    assert checked
 
 
 # Both vintages' axes boxes fall inside these windows on the 1500x1200
@@ -148,16 +157,16 @@ def test_excel_heatmap_golden_interior_parity(tmp_path, stem):
     from slam_process_tpu.pipeline.session import Session
 
     gold = plt.imread(
-        DEBUGDOC / "heatmap_outputs" / f"{stem}_filtered_heatmap.png"
+        _ref("debugDoc", "heatmap_outputs", f"{stem}_filtered_heatmap.png")
     )
     H, W = gold.shape[:2]
     gx0, gx1, gy0, gy1 = _detect_axes_box(gold)
     rect = (gx0 / W, (H - 1 - gy1) / H, (gx1 - gx0) / W, (gy1 - gy0) / H)
 
-    s = Session.from_filtered_xlsx(DEBUGDOC / f"{stem}_filtered.xlsx")
+    s = Session.from_filtered_xlsx(_ref("debugDoc", f"{stem}_filtered.xlsx"))
     out = tmp_path / "eh.png"
     s.render_heatmap(
-        BEAM_ANGLE, out,
+        _ref("beam_angle.xlsx"), out,
         SceneConfig(keep_nan=True, fill_with_min=False),
         RenderConfig(blur_sigma=1.0, use_log=False, dpi=150),
         source="filtered",

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 
 from slam_process_tpu.io.hexlog import tokenize_hex, tokenize_hex_reference
-from tests.conftest import DEBUGDOC
+from tests.conftest import DEBUGDOC, LOG_NAMES
 
 
 def test_basic_tokens():
@@ -49,7 +49,7 @@ def test_equivalence_random_valid_utf8():
 
 
 @pytest.mark.parametrize(
-    "log", sorted(p.name for p in DEBUGDOC.glob("*.txt")), ids=lambda s: s[-20:-4]
+    "log", LOG_NAMES, ids=lambda s: s[-20:-4]
 )
 def test_equivalence_on_shipped_logs(log):
     data = (DEBUGDOC / log).read_bytes()

@@ -17,10 +17,11 @@ import jax.numpy as jnp
 
 from tests.conftest import SMALL_LOG, SMALL_LOG_2026_02_06
 
-# Static capacity bounds sized like bench.py's full-dataset run (the two
-# logs here have <= 58 groups / <= 93 baselines per group).
+# Static capacity bounds sized like bench.py's archive run (generated
+# captures have <= 58 groups and up to 4% of a ~4.2k-frame sweep as
+# baselines per group — io/synth.py).
 MAX_GROUPS = 64
-MAX_BASELINES = 96
+MAX_BASELINES = 192
 
 
 @pytest.fixture(scope="module")
@@ -496,9 +497,9 @@ def test_multi_stream_reset_attaches_new_feed():
 
 
 def test_scan_sessions_bitwise_equals_vmap(stacked, single_device_out):
-    """session_axis='scan' (the small-executable form for transports that
-    refuse large code-heavy programs — STATUS 'Transport
-    characterization' #5) must reproduce the vmapped outputs bit-exactly."""
+    """session_axis='scan' (the small-executable form: code size of one
+    session regardless of S) must reproduce the vmapped outputs
+    bit-exactly."""
     from slam_process_tpu.parallel.batch import batched_session_pipeline
     from slam_process_tpu.parallel.mesh import make_mesh
 

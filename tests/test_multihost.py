@@ -1,14 +1,14 @@
-"""Multi-host (DCN-axis) scaling: 2 REAL processes x 4 virtual devices.
+"""Multi-process scaling: 2 REAL processes x 4 virtual devices.
 
 The process-spanning batched pipeline (parallel/multihost.py) must
 reproduce the single-process results exactly: 2 worker processes join a
-gloo-collective cluster, each contributes 2 reference logs to one
+gloo-collective cluster, each contributes 2 generated captures to one
 (8,)-data-mesh program, and every per-session summary is compared
 against this (single) process's oracle run of the same sessions.
 
-This exercises the code path real TPU pods use for DCN (process-group
-init, host-local -> global array assembly, cross-process collectives) —
-SURVEY §5.8's scaling axis beyond a single host.
+This exercises the multi-process code path (process-group init,
+host-local -> global array assembly, cross-process collectives) —
+SURVEY §5.8's scaling axis beyond a single process.
 """
 
 import json
@@ -21,7 +21,9 @@ import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-DEBUGDOC = Path("/root/reference/debugDoc")
+from tests.conftest import BEAM_ANGLE, DEBUGDOC  # noqa: E402
+
+MAPPING = str(BEAM_ANGLE)
 
 LOGS = [
     DEBUGDOC / "256-0x16-Serial Debug 2026-01-26 164520.txt",
@@ -88,7 +90,7 @@ def test_two_process_batched_pipeline_matches_single_process():
         s = Session.from_log(log)
         s.correct()
         sessions.append(s)
-    est = estimate_sessions(sessions, "/root/reference/beam_angle.xlsx",
+    est = estimate_sessions(sessions, MAPPING,
                             flavor="v1-7", grid_res=0.5)
     for i in range(len(LOGS)):
         w, j = outs[i // 2], i % 2
@@ -172,7 +174,7 @@ def test_two_process_cli_watch_multihost(tmp_path):
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "slam_process_tpu.pipeline.cli",
              "watch", "--logs", str(grows[pid]),
-             "--mapping", "/root/reference/beam_angle.xlsx",
+             "--mapping", MAPPING,
              "--outdir", str(tmp_path / f"out{pid}"),
              "--engine", "device",
              "--coordinator", coordinator, "--num-processes", "2",
@@ -253,7 +255,7 @@ def test_two_process_cli_watch_multihost_events(tmp_path):
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "slam_process_tpu.pipeline.cli",
              "watch", "--logs", str(grows[pid]),
-             "--mapping", "/root/reference/beam_angle.xlsx",
+             "--mapping", MAPPING,
              "--outdir", str(tmp_path / f"out{pid}"),
              "--engine", "device", "--paths",
              "--events", str(tmp_path / f"events{pid}.jsonl"),
@@ -289,7 +291,7 @@ def test_two_process_cli_watch_multihost_events(tmp_path):
         assert len(keys) == len(set(keys)), f"duplicates, process {pid}"
         s = replay_log(tokenize_hex(blob),
                        collect_paths=make_paths_spec(
-                           "/root/reference/beam_angle.xlsx"))
+                           MAPPING))
         tracks, times, _ = s.path_tracks()
         ev = scene_change_events(
             detect_scene_changes_np(tracks, min_persist=2, min_gone=2,

@@ -1,24 +1,22 @@
-"""On-chip numerics sentinels (the `-m tpu` lane).
+"""On-card numerics sentinels (the ``gpu`` lane).
 
-The CPU lane is hermetic but blind to TPU-only numerics: round 2's
-NaN-aware-blur bf16 corruption (8.6e-4 raster delta, 104 LUT-bin flips)
-and round 3's estimator-argmax bf16 flips (the v1-7 device engine selected
-a different FIRST atom than the float64 oracle) both passed every CPU test
-and were caught only by ad-hoc on-chip runs.  This file makes those checks
-a test lane:
+The CPU lane is hermetic but blind to accelerator-only numerics: a matmul
+that runs at reduced precision (bf16, or TF32 on the H100's tensor cores)
+moved raster cells across colormap bins and flipped the estimator's first
+selected atom against the float64 oracle, and both passed every CPU test.
+This file makes those checks a test lane:
 
-    SLAM_PROCESS_TPU_TEST_TPU=1 python -m pytest tests -m tpu
+    SLAM_PROCESS_TPU_TEST_GPU=1 python -m pytest tests -m gpu
 
-Every test asserts against a float64 host oracle, on real session data,
-with the production (non-interpret) kernels.  Reference test strategy:
-SURVEY.md §4(d) — device-vs-interpreter kernel equivalence as the
-fake-backend substitute.
+Every test asserts against a float64 host oracle, on generated captures
+(tests/conftest.py), with the production programs compiled for the card.
+Each test skips unless JAX's default backend is the GPU.
 """
 
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.tpu
+pytestmark = [pytest.mark.gpu, pytest.mark.usefixtures("require_gpu")]
 
 
 @pytest.fixture(scope="module")
@@ -31,7 +29,7 @@ def decoded(small_log_bytes):
 
 
 def test_device_pipeline_matches_host_on_chip(small_log_bytes, decoded):
-    """decode+correct on the chip == numpy, frame- and row-exact."""
+    """decode+correct on the card == numpy, frame- and row-exact."""
     import jax
 
     from slam_process_tpu.pipeline.device import run_session_on_device
@@ -54,7 +52,7 @@ def test_device_pipeline_matches_host_on_chip(small_log_bytes, decoded):
 
 def test_norm_raster_matches_f64_oracle_on_chip(small_log_bytes, decoded):
     """norm_t vs the float64 oracle at <= 1e-4 (the blur-precision
-    sentinel: bf16 conv regressed this to 8.6e-4 in round 1)."""
+    sentinel: a bf16 blur regressed this to 8.6e-4)."""
     import jax
 
     from slam_process_tpu.config import SceneConfig
@@ -75,57 +73,10 @@ def test_norm_raster_matches_f64_oracle_on_chip(small_log_bytes, decoded):
     assert float(np.max(np.abs(ours_t[both] - oracle_t[both]))) < 1e-4
 
 
-def test_pallas_decode_on_chip(small_log_bytes, decoded):
-    """The DMA decode kernel, NON-interpreted, byte-exact vs numpy
-    (absorbs tools/validate_pallas_on_device.py)."""
-    from slam_process_tpu.ops.decode import frame_capacity
-    from slam_process_tpu.ops.pallas_decode import decode_frames_pallas
-
-    dec, _ = decoded
-    frames, count = decode_frames_pallas(
-        small_log_bytes, frame_capacity(len(small_log_bytes)),
-        rows_per_chunk=512, interpret=False)
-    assert int(count) == dec.valid
-    np.testing.assert_array_equal(np.asarray(frames)[: dec.valid], dec.frames)
-
-
-def test_pallas_raster_on_chip():
-    """The fused raster kernel, NON-interpreted, vs the XLA path
-    (absorbs tools/validate_pallas_on_device.py)."""
-    import jax
-    import jax.numpy as jnp
-
-    from slam_process_tpu.ops.pallas_raster import pallas_rasterize_batch
-    from slam_process_tpu.ops.raster import (
-        apply_colormap_float,
-        blur_nan_aware_jax,
-        colormap_lut,
-        shifted_log_norm,
-    )
-
-    rng = np.random.default_rng(0)
-    mats = rng.uniform(1.0, 4e6, size=(16, 64, 64)).astype(np.float32)
-    mats[rng.random(mats.shape) < 0.3] = np.nan
-    lut = jnp.asarray(colormap_lut("viridis"))
-    _, t_p = pallas_rasterize_batch(mats, lut, interpret=False)
-
-    def xla_one(m):
-        b = blur_nan_aware_jax(m, 1.0)
-        t = shifted_log_norm(b)
-        return apply_colormap_float(t, lut), t
-
-    _, t_x = jax.jit(jax.vmap(xla_one))(mats)
-    both = np.isfinite(np.asarray(t_x)) & np.isfinite(np.asarray(t_p))
-    d = np.max(np.abs(np.asarray(t_p)[both] - np.asarray(t_x)[both]))
-    # Both paths f32; shifted-log amplifies ulp-level conv differences near
-    # the global min.  Budget = the BASELINE pixel budget (measured 2.4e-4
-    # on TPU v5e with the HIGHEST-precision conv).
-    assert d < 1e-3, d
-
-
 def test_nn_omp_device_engine_matches_oracle_on_chip(decoded, angle_lut64):
-    """The flagship v1-7 NN-OMP on the chip: the selection sequence must
-    equal the float64 host oracle's (the bf16-argmax sentinel)."""
+    """The flagship v1-7 NN-OMP on the card: the selection sequence must
+    equal the float64 host oracle's (the reduced-precision argmax
+    sentinel)."""
     from slam_process_tpu.config import DictionaryConfig, OmpConfig
     from slam_process_tpu.models.dictionary import make_dictionary
     from slam_process_tpu.models.nn_omp import nn_omp_np, run_nn_omp
@@ -155,7 +106,7 @@ def test_nn_omp_device_engine_matches_oracle_on_chip(decoded, angle_lut64):
 
 
 def test_device_streaming_emit_parity_on_chip(small_log_bytes, decoded):
-    """Emit-ring streaming on the chip: exact filtered-rows parity."""
+    """Emit-ring streaming on the card: exact filtered-rows parity."""
     from slam_process_tpu.parallel.streaming_device import replay_log_device
 
     dec, res = decoded
@@ -166,10 +117,10 @@ def test_device_streaming_emit_parity_on_chip(small_log_bytes, decoded):
 
 
 def test_sweep_paths_selection_matches_oracle_on_chip(small_log_bytes):
-    """Per-sweep Gram-domain NN-OMP on the chip: every sweep's selected
+    """Per-sweep Gram-domain NN-OMP on the card: every sweep's selected
     grid indices must equal the float64 per-sweep host oracle's (the same
-    bf16-argmax failure class as the session-level sentinel, on the
-    vmapped-and-bucketed path bench actually measures)."""
+    argmax failure class as the session-level sentinel, on the
+    vmapped-and-bucketed path)."""
     from slam_process_tpu.config import DictionaryConfig, OmpConfig, SceneConfig
     from slam_process_tpu.models.dictionary import make_dictionary
     from slam_process_tpu.models.nn_omp import nn_omp_np
@@ -180,7 +131,7 @@ def test_sweep_paths_selection_matches_oracle_on_chip(small_log_bytes):
     from slam_process_tpu.pipeline.session import Session
     from tests.conftest import BEAM_ANGLE
 
-    s = Session("tpu_sweeps")
+    s = Session("gpu_sweeps")
     s.frames = decode_frames_np(small_log_bytes).frames
     s.correct()
     paths, sweep_valid = s.sweep_paths(BEAM_ANGLE)
@@ -215,39 +166,12 @@ def test_sweep_paths_selection_matches_oracle_on_chip(small_log_bytes):
     assert checked >= 5
 
 
-def test_pallas_correct_planes_on_chip():
-    """The fused corrector-plane kernel, NON-interpreted, bit-exact vs the
-    XLA chain it mirrors (numbers in ops/pallas_correct.py's docstring)."""
-    import jax
-    import jax.numpy as jnp
-
-    from tests.test_pallas_correct import (
-        BMAX, CYCLE, TOL, _oracle, _pack)
-    from slam_process_tpu.ops.pallas_correct import G_PAD, correct_planes_pallas
-
-    rng = np.random.default_rng(7)
-    f = 4096
-    gid = np.sort(rng.integers(0, 64, f)).astype(np.int32)
-    clk = rng.integers(0, 1 << 30, f).astype(np.int32)
-    tbl_clk = rng.integers(0, 1 << 30, (G_PAD, BMAX)).astype(np.int32)
-    tbl_bs = rng.integers(0, 64, (G_PAD, BMAX)).astype(np.int32)
-    n_cap = rng.integers(0, BMAX + 1, G_PAD).astype(np.int32)
-    has, kb, bb = jax.device_get(correct_planes_pallas(
-        jnp.asarray(gid), jnp.asarray(clk),
-        jnp.asarray(_pack(tbl_clk, tbl_bs, n_cap)),
-        bmax=BMAX, cycle=CYCLE, tol=TOL, interpret=False))
-    ref_has, ref_k, ref_bs = _oracle(gid, clk, tbl_clk, tbl_bs, n_cap)
-    np.testing.assert_array_equal(has, ref_has)
-    np.testing.assert_array_equal(np.where(ref_has, kb, 0), ref_k)
-    np.testing.assert_array_equal(np.where(ref_has, bb, 0), ref_bs)
-
-
 def test_device_tokenize_on_chip(small_log_bytes):
-    """Round-4 sentinel: the on-chip stride-3 tokenizer (MXU deinterleave
-    matmul path, bf16 x bf16 -> f32) must be byte-exact vs the reference
-    tokenizer, and the fused text pipeline must equal the byte pipeline.
-    The bf16 deinterleave relies on small-integer exactness — precisely
-    the class of property only the real chip can certify."""
+    """The on-card stride-3 tokenizer (deinterleave matmul, bf16 x bf16 ->
+    f32) must be byte-exact vs the reference tokenizer, and the fused text
+    pipeline must equal the byte pipeline.  The bf16 deinterleave relies
+    on small-integer exactness through cuBLAS — a property only the card
+    can certify."""
     import jax
 
     from slam_process_tpu.io.hexlog import tokenize_hex
@@ -274,9 +198,9 @@ def test_device_tokenize_on_chip(small_log_bytes):
 
 
 def test_streaming_online_paths_on_chip(small_log_bytes):
-    """Round-4 sentinel: ONLINE in-stream estimation + tracking on the
-    real chip == the offline flagship on the same beam set (selection
-    indices exact; the estimator argmax is the known bf16-flip hazard)."""
+    """ONLINE in-stream estimation + tracking on the card == the offline
+    flagship on the same beam set (selection indices exact; the estimator
+    argmax is the known reduced-precision flip hazard)."""
     from slam_process_tpu.parallel.streaming_device import (
         DeviceStreamingSession,
         make_paths_spec,
@@ -310,84 +234,11 @@ def test_streaming_online_paths_on_chip(small_log_bytes):
     np.testing.assert_array_equal(times, ott)
 
 
-def test_pallas_sweep_sums_on_chip(decoded):
-    """Round-4 sentinel: the Pallas per-sweep sums kernel (non-interpret,
-    the production engine on TPU) == the XLA scan formulation, bit-exact,
-    on real corrected session rows."""
-    import jax
-    import jax.numpy as jnp
-
-    from slam_process_tpu.config import SceneConfig
-    from slam_process_tpu.ops.correct import detect_groups_np
-    from slam_process_tpu.ops.scene import intensity_per_sweep_sums_jax
-
-    dec, res = decoded
-    filt = res.filtered                      # [K, 4] (ue, bs, rss, clk)
-    gid = detect_groups_np(filt[:, 0])
-    s_max = int(gid[-1]) + 1
-    args = (jnp.asarray(filt[:, 0], jnp.int32),
-            jnp.asarray(filt[:, 1], jnp.int32),
-            # Integer dtype: the explicit-pallas engine asserts it (float
-            # RSS would be silently truncated by the limb split).
-            jnp.asarray(filt[:, 2], jnp.int32),
-            jnp.asarray(gid, jnp.int32),
-            jnp.ones((len(filt),), bool))
-    import functools
-    scan_fn = jax.jit(functools.partial(
-        intensity_per_sweep_sums_jax, max_sweeps=s_max,
-        cfg=SceneConfig(), engine="scan"))
-    pallas_fn = jax.jit(functools.partial(
-        intensity_per_sweep_sums_jax, max_sweeps=s_max,
-        cfg=SceneConfig(), engine="pallas"))
-    s_ref, c_ref = jax.device_get(scan_fn(*args))
-    s_k, c_k = jax.device_get(pallas_fn(*args))
-    np.testing.assert_array_equal(s_k, s_ref)
-    np.testing.assert_array_equal(c_k, c_ref)
-    assert c_ref.sum() == len(filt)
-
-
-def test_pallas_compact_on_chip():
-    """Round-4 sentinel: the Pallas carry-compaction kernel
-    (non-interpret, the streaming step's production compaction on TPU)
-    == rows[mask][:capacity], bit-exact, at a production-like shape."""
-    import jax.numpy as jnp
-
-    from slam_process_tpu.ops.pallas_compact import compact_rows_pallas
-
-    rng = np.random.default_rng(11)
-    f, cap = 100352, 4096
-    rows = rng.integers(0, 1 << 30, (f, 5)).astype(np.int32)
-    mask = np.zeros(f, bool)
-    mask[-6000:] = rng.random(6000) < 0.6       # open-sweep-like tail
-    try:
-        out = np.asarray(compact_rows_pallas(
-            jnp.asarray(rows), jnp.asarray(mask), capacity=cap,
-            interpret=False))
-    except Exception as e:   # pragma: no cover — chip-dependent
-        # The kernel is NOT production ('auto' resolves to XLA until this
-        # sentinel is green — parallel/streaming_device.py); a Mosaic
-        # rejection is status information, not a product failure.
-        pytest.skip(f"Mosaic rejected the compact kernel: {e!r}")
-    ref = rows[mask][:cap]
-    ref_pad = np.zeros((cap, 5), np.int32)
-    ref_pad[:len(ref)] = ref
-    np.testing.assert_array_equal(out, ref_pad)
-
-    # Overflow path on real Mosaic: masked count >> capacity, so later
-    # blocks' running base exceeds capacity and the store-window clamp
-    # (not undefined OOB-store behavior) must protect in-capacity rows.
-    mask2 = rng.random(f) < 0.5
-    out2 = np.asarray(compact_rows_pallas(
-        jnp.asarray(rows), jnp.asarray(mask2), capacity=cap,
-        interpret=False))
-    np.testing.assert_array_equal(out2, rows[mask2][:cap])
-
-
 def test_track_columns_windowed_reads_on_chip(small_log_bytes):
-    """Round-4 sentinel: the incremental ring-slice reads behind the live
-    --events feed (`track_columns(lo, hi)`) return exactly the batch
-    track tensors' columns when the rings live on the real chip, across
-    windowed reads and re-reads."""
+    """The incremental ring-slice reads behind the live --events feed
+    (`track_columns(lo, hi)`) return exactly the batch track tensors'
+    columns when the rings live on the card, across windowed reads and
+    re-reads."""
     from slam_process_tpu.parallel.streaming_device import (
         DeviceStreamingSession,
         make_paths_spec,

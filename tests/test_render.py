@@ -104,7 +104,10 @@ def test_cli_decode_correct_roundtrip(tmp_path):
 def test_run_named_config_heatmap(tmp_path):
     from slam_process_tpu.pipeline.configs import run_named_config
 
-    result = run_named_config("excel_heatmap_v3", outdir=tmp_path)
+    from tests.conftest import BEAM_ANGLE, DEBUGDOC
+
+    result = run_named_config("excel_heatmap_v3", data_dir=DEBUGDOC,
+                              mapping=BEAM_ANGLE, outdir=tmp_path)
     assert result["config"] == "excel_heatmap_v3"
     assert Path(result["png"]).stat().st_size > 10_000
 

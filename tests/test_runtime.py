@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 
 from slam_process_tpu.io.hexlog import tokenize_hex
-from tests.conftest import DEBUGDOC, SMALL_LOG
+from tests.conftest import DEBUGDOC, LOG_NAMES, SMALL_LOG
 
 hexscan = pytest.importorskip("slam_process_tpu.runtime.hexscan")
 
@@ -69,7 +69,7 @@ def test_native_simd_blocks_and_resync():
 def test_native_all_logs_and_speed():
     total_bytes = 0
     t_native = 0.0
-    for p in sorted(DEBUGDOC.glob("*.txt")):
+    for p in (DEBUGDOC / n for n in LOG_NAMES):
         data = p.read_bytes()
         total_bytes += len(data)
         t0 = time.perf_counter()

@@ -161,14 +161,19 @@ def test_per_sweep_intensity():
                                    atol=3e-4)
 
 
-def test_per_sweep_vmapped_pallas_raster(small_log_bytes):
-    """Per-sweep grids feed the batch raster kernel (interpret mode)."""
+def test_per_sweep_vmapped_raster(small_log_bytes):
+    """Per-sweep grids feed the vmapped XLA raster (blur, norm, colormap)."""
+    import jax
     import jax.numpy as jnp
 
     from slam_process_tpu.ops.correct import correct_frames_np, detect_groups_np
     from slam_process_tpu.ops.decode import decode_frames_np
-    from slam_process_tpu.ops.pallas_raster import pallas_rasterize_batch
-    from slam_process_tpu.ops.raster import colormap_lut
+    from slam_process_tpu.ops.raster import (
+        apply_colormap_float,
+        blur_nan_aware_jax,
+        colormap_lut,
+        shifted_log_norm,
+    )
     from slam_process_tpu.ops.scene import intensity_per_sweep_jax
 
     frames = decode_frames_np(small_log_bytes).frames
@@ -181,8 +186,13 @@ def test_per_sweep_vmapped_pallas_raster(small_log_bytes):
         jnp.asarray(filt[:, 2], jnp.float32), jnp.asarray(gid, jnp.int32),
         jnp.ones(len(filt), dtype=bool), max_sweeps=S,
     )
-    rgba, t = pallas_rasterize_batch(np.asarray(mean).transpose(0, 2, 1),
-                                     colormap_lut("viridis"), interpret=True)
+    lut = jnp.asarray(colormap_lut("viridis"))
+
+    def one(m):
+        t = shifted_log_norm(blur_nan_aware_jax(m, 1.0))
+        return apply_colormap_float(t, lut), t
+
+    rgba, t = jax.jit(jax.vmap(one))(jnp.transpose(mean, (0, 2, 1)))
     assert rgba.shape == (S, 64, 64, 4)
     # every sweep raster has signal
     assert all(np.isfinite(np.asarray(t)[s]).any() for s in range(S))

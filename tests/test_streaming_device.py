@@ -77,24 +77,6 @@ def test_device_streaming_log_transform(small_log_bytes, offline):
                                equal_nan=True)
 
 
-def test_device_streaming_pallas_decoder_matches_xla(small_log_bytes, offline):
-    """The double-buffered Pallas ingest kernel wired into the stream path."""
-    from slam_process_tpu.parallel.streaming_device import replay_log_device
-
-    dec, res = offline
-    # One window only (pallas interpret mode is slow on CPU).
-    raw = small_log_bytes[: 1 << 16]
-    from slam_process_tpu.ops.correct import correct_frames_np
-    from slam_process_tpu.ops.decode import decode_frames_np
-
-    sub_dec = decode_frames_np(raw)
-    s = replay_log_device(raw, chunk_bytes=1 << 16, decoder="pallas",
-                          collect_filtered=True)
-    assert s.n_frames == sub_dec.valid
-    sub_res = correct_frames_np(sub_dec.frames)
-    np.testing.assert_array_equal(s.filtered, sub_res.filtered)
-
-
 def test_host_streaming_log_transform(small_log_bytes, offline):
     """The host state machine honors log_transform too (advisor finding)."""
     from slam_process_tpu.ops.scene import intensity_grid_np
@@ -246,19 +228,15 @@ def test_big_open_group_straddles_window_boundary():
 
 @pytest.mark.slow
 def test_log4_default_bounds_exact():
-    """The log whose 4,361-frame group broke the old default, pinned at
-    the bench configuration (1 MiB chunks, default bounds)."""
-    import glob
-
-    from slam_process_tpu.io import read_hex_log
+    """A capture whose sweep groups hold ~4.2k frames (above the old fixed
+    default), pinned at the bench configuration (1 MiB chunks, default
+    bounds)."""
+    from slam_process_tpu.io import synth
     from slam_process_tpu.ops.correct import correct_frames_np
     from slam_process_tpu.ops.decode import decode_frames_np
     from slam_process_tpu.parallel.streaming_device import replay_log_device
-    from tests.conftest import DEBUGDOC
 
-    path = sorted(glob.glob(str(DEBUGDOC / "*.txt")))[4]
-    assert "114913" in path
-    raw = read_hex_log(path)
+    raw = synth.capture(4, 12500, 3).wire
     s = replay_log_device(raw, chunk_bytes=1 << 20, collect_filtered=True)
     assert not s.overflow
     dec = decode_frames_np(raw)
@@ -343,18 +321,15 @@ def test_emit_ring_auto_grows_for_long_streams(small_log_bytes):
 def test_emit_dataset_scale_single_stream():
     """One stream larger than the old fixed default (262,144 rows kept):
     every log concatenated, default auto-capacity, exact export parity."""
-    import glob
-
-    from slam_process_tpu.io import read_hex_log
+    from slam_process_tpu.io import synth
     from slam_process_tpu.ops.correct import correct_frames_np
     from slam_process_tpu.ops.decode import decode_frames_np
     from slam_process_tpu.parallel.streaming_device import (
         DeviceStreamingSession,
     )
-    from tests.conftest import DEBUGDOC
 
-    logs = sorted(glob.glob(str(DEBUGDOC / "*.txt")))
-    stream = np.concatenate([read_hex_log(p) for p in logs])
+    stream = np.concatenate([synth.capture(seed, 100_000, 30).wire
+                             for seed in range(3)])
     s = DeviceStreamingSession(chunk_bytes=1 << 20, collect_filtered=True)
     for off in range(0, len(stream), 1 << 20):
         s.feed(stream[off:off + (1 << 20)])

@@ -10,7 +10,6 @@ track tensors, and the velocity fits must be EXACTLY equal at multiple
 chunk sizes.
 """
 
-import glob
 
 import numpy as np
 import pytest
@@ -22,7 +21,7 @@ from slam_process_tpu.parallel.streaming_device import (
     make_paths_spec,
 )
 from slam_process_tpu.pipeline.session import Session
-from tests.conftest import BEAM_ANGLE, DEBUGDOC, SMALL_LOG
+from tests.conftest import BEAM_ANGLE, DEBUGDOC, LOG_NAMES, SMALL_LOG
 
 
 def _replay(raw, spec, chunk_bytes, **kw):
@@ -142,7 +141,7 @@ def test_without_collect_paths_accessors_raise():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("path", sorted(glob.glob(str(DEBUGDOC / "*.txt"))))
+@pytest.mark.parametrize("path", [str(DEBUGDOC / n) for n in LOG_NAMES])
 def test_online_paths_match_offline_all_logs(path):
     raw = read_hex_log(path)
     spec = make_paths_spec(BEAM_ANGLE)
@@ -200,7 +199,7 @@ def test_multi_stream_online_paths_match_single_stream():
 def test_host_online_paths_match_offline(chunk):
     """The HOST engine's online estimation (StreamingSession(
     collect_paths=...), estimating each kept-sweep as it closes with
-    O(sweeps) memory) equals the offline flagship exactly — the no-TPU
+    O(sweeps) memory) equals the offline flagship exactly — the no-accelerator
     counterpart of the device engine's collect_paths contract."""
     from slam_process_tpu.parallel.streaming import StreamingSession
 

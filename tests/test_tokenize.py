@@ -2,7 +2,6 @@
 fallback behavior on every stream shape that can break the stride assumption.
 """
 
-import glob
 
 import numpy as np
 import pytest
@@ -15,7 +14,7 @@ from slam_process_tpu.ops.tokenize import (
     tokenize_device,
     tokenize_stride3_jax,
 )
-from tests.conftest import DEBUGDOC, SMALL_LOG
+from tests.conftest import DEBUGDOC, LOG_NAMES, SMALL_LOG
 
 
 def _device_tok(data: bytes):
@@ -31,7 +30,7 @@ def test_small_log_matches_reference():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("path", sorted(glob.glob(str(DEBUGDOC / "*.txt"))))
+@pytest.mark.parametrize("path", [str(DEBUGDOC / n) for n in LOG_NAMES])
 def test_all_logs_match_reference(path):
     data = open(path, "rb").read()
     got, used_device = _device_tok(data)

@@ -13,9 +13,10 @@ from pathlib import Path
 
 import numpy as np
 
-LOG = Path("/root/reference/debugDoc/"
-           "256-0x16-Serial Debug 2026-01-26 164520.txt")
-MAPPING = "/root/reference/beam_angle.xlsx"
+from tests.conftest import BEAM_ANGLE, SMALL_LOG
+
+LOG = SMALL_LOG
+MAPPING = str(BEAM_ANGLE)
 
 
 import pytest
